@@ -1,16 +1,19 @@
-"""Load the reference package's GNN parameters into the port's GNN.
+"""Load the reference package's GNN parameters and stores into the port.
 
 The reference keeps GNN parameters as a nested dict
 ``{"embed": {...}, "layers": {name: [per-layer]}, "head": {...}}`` of arrays
 applied as ``h @ w``; :class:`repro_torch.models.gnn.GNN` keeps the same
 layout and orientation, so conversion is a leaf-for-leaf copy. Pass the
 reference tree with its leaves as numpy arrays (``np.asarray`` of each).
+Historical stores have the same (L, n, d) layout in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.history import HistoricalState
+from repro_torch.device import resolve_device
 from repro_torch.models.gnn import GNN
 
 
@@ -51,3 +54,13 @@ def params_from_reference(gnn: GNN, tree) -> dict:
         for k, p in ours.items():
             p.copy_(torch.from_numpy(np.array(arrays[k], dtype=np.float32)))
     return gnn.params()
+
+
+def state_from_reference(h, v, device=None) -> HistoricalState:
+    """A reference ``HistoricalState``'s stores, given as numpy arrays
+    ``h`` (L, n, d) and ``v`` (L-1, n, d), as the port's on ``device``
+    (None: the card). The arrays are copied, never shared."""
+    dev = resolve_device(device)
+    return HistoricalState(
+        h=torch.tensor(np.asarray(h), device=dev),
+        v=None if v is None else torch.tensor(np.asarray(v), device=dev))

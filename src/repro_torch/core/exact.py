@@ -1,8 +1,9 @@
-"""Exact full-graph computation: ground-truth values and per-layer adjoints.
+"""Exact full-graph computation: ground-truth gradients and per-layer adjoints.
 
-Provides the full-batch loss and accuracy, and the exact per-node embeddings
-H^l and auxiliary variables V^l = ∇_{H^l} L (the vs come through
-``torch.autograd``). The H^l also warm the serving store.
+Provides the full-batch loss, gradients and accuracy, the exact per-node
+embeddings H^l and auxiliary variables V^l = ∇_{H^l} L (the vs come through
+``torch.autograd``), which also warm the serving store, and the backward-SGD
+estimate of Section 4.2 built from them (the ground truth of Fig. 3).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import GNN, EdgeList, LayerAux
+from repro_torch.optim.optimizers import tree_map
 
 
 class FullGraphData(NamedTuple):
@@ -64,6 +66,14 @@ def full_loss(gnn: GNN, params: dict, data: FullGraphData) -> torch.Tensor:
     return _masked_nll(logits, data.labels, data.labeled_mask)
 
 
+def full_grads(gnn: GNN, params: dict, data: FullGraphData):
+    """(loss, exact ∇L) by autodiff — the ground truth of Fig. 3."""
+    grads, loss = torch.func.grad_and_value(
+        lambda p: full_loss(gnn, p, data))(tree_map(torch.Tensor.detach,
+                                                    params))
+    return loss, grads
+
+
 def accuracy(gnn: GNN, params: dict, data: FullGraphData,
              mask: torch.Tensor) -> torch.Tensor:
     logits = gnn.full_forward(params, data.x, data.edges, data.self_w)
@@ -100,3 +110,28 @@ def exact_layer_values(gnn: GNN, params: dict, data: FullGraphData):
             (V,) = torch.autograd.grad(out, h_in, grad_outputs=V)
             vs[l - 1] = V
     return hs, vs
+
+
+def backward_sgd_grads(gnn: GNN, params: dict, data: FullGraphData,
+                       hs, vs, batch_nodes: torch.Tensor, scale: float):
+    """Eq. (7)/(15): θ-gradient estimate from exact values on a mini-batch.
+
+    ``scale`` is b/c (App. A.3.1); with exact hs/vs these estimates are
+    *unbiased* over uniform batch sampling (Thm 1). Returns the layer
+    gradients in the layout of ``params["layers"]``.
+    """
+    L = gnn.num_layers
+    params = tree_map(torch.Tensor.detach, params)
+    h0 = gnn.embed_apply(params["embed"], data.x)
+    aux = LayerAux(edges=data.edges, x=data.x, h0=h0, self_w=data.self_w)
+    sel = torch.zeros(data.x.shape[0], device=data.x.device)
+    sel[batch_nodes.long()] = 1.0
+    grads = []
+    for l in range(L):
+        hin = h0 if l == 0 else hs[l - 1]
+        _, vjp_fn = torch.func.vjp(
+            lambda lp_, _l=l, _hin=hin: gnn.layer_apply(lp_, _l, _hin, aux),
+            gnn.layer_params(params, l))
+        (g_lp,) = vjp_fn(vs[l] * sel[:, None])
+        grads.append({k: scale * g for k, g in g_lp.items()})
+    return {k: [g[k] for g in grads] for k in params["layers"]}

@@ -1,10 +1,23 @@
-"""Local Message Compensation — the forward (serving) half of Algorithm 1.
+"""Local Message Compensation — the paper's Algorithm 1, in PyTorch.
 
-``make_infer_step`` is the forward-only entry point over the historical
-store: batch rows aggregate their complete neighbourhood, halo rows are
-compensated (Eq. 9) from the store or, store-free, by the message-invariance
-transform. The training step (the explicit backward message passing of
-Eqs. 11-13) comes with the training port.
+``make_train_step`` is one LMC/GAS/Cluster-GCN training step (the method
+space of core/methods.py). Its backward pass is *explicit* message passing
+(Eqs. 11-13) from one ``torch.func.vjp`` per layer, taken during the forward
+pass and applied to two cotangents:
+
+  * ``[V̄_batch ; V̂_halo]`` -> the adjoint recursion (Eqs. 11 & 13)
+  * ``[V̄_batch ; 0]``      -> the θ-gradients (Eq. 7 sums in-batch rows only)
+
+``make_infer_step`` is the forward-only serving entry point over the
+historical store: batch rows aggregate their complete neighbourhood, halo
+rows are compensated (Eq. 9) from the store or, store-free, by the
+message-invariance transform.
+
+Neither step writes the store. Each returns the batch rows to refresh, and
+the caller commits them with :func:`commit_rows` once it accepts the step (a
+discarded step leaves no trace). The deferral is exact: layer l's
+compensation reads ``store.h[l]`` (and the backward ``store.v[l-1]``) before
+that layer's own refresh, and nothing later reads the refreshed layer.
 """
 from __future__ import annotations
 
@@ -12,12 +25,15 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.history import HistoricalState, gather_rows, scatter_rows
+from repro_torch.core.methods import MBMethod
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import PaddedSubgraph
 from repro_torch.kernels import ELLGraph, ell_from_coo, lmc_compensate
 from repro_torch.models.gnn import GNN, EdgeList, LayerAux
+from repro_torch.optim.optimizers import tree_map
 
 AGG_BACKENDS = ("segment", "ell", "ti")
 
@@ -52,15 +68,19 @@ class Batch(NamedTuple):
 
 
 def host_batch(sg: PaddedSubgraph, *, backend: str = "segment",
-               ell_buckets=(8, 32, 128)) -> Batch:
+               ell_buckets=(8, 32, 128), with_transpose: bool = True) -> Batch:
     """A Batch of CPU tensors, with the re-bucketed ELL adjacency for
-    ``backend="ell"|"ti"`` and the α scales for ``backend="ti"``."""
+    ``backend="ell"|"ti"`` and the α scales for ``backend="ti"``.
+
+    ``with_transpose`` also buckets Aᵀ, which the training step's backward
+    SpMM runs over; the forward-only serving path passes False.
+    """
     assert backend in AGG_BACKENDS, backend
     ell = None
     ti_scale = None
     if backend in ("ell", "ti"):
         ell = ell_from_coo(sg.edge_src, sg.edge_dst, sg.edge_w, sg.n_ext,
-                           buckets=ell_buckets)
+                           buckets=ell_buckets, with_transpose=with_transpose)
     if backend == "ti":
         if sg.ti_scale is None:
             raise ValueError(
@@ -82,10 +102,12 @@ def host_batch(sg: PaddedSubgraph, *, backend: str = "segment",
 
 
 def to_device_batch(sg: PaddedSubgraph, *, backend: str = "segment",
-                    ell_buckets=(8, 32, 128), device=None) -> Batch:
+                    ell_buckets=(8, 32, 128), with_transpose: bool = True,
+                    device=None) -> Batch:
     """Host subgraph -> Batch on ``device`` (None: the card)."""
-    return host_batch(sg, backend=backend,
-                      ell_buckets=ell_buckets).to(resolve_device(device))
+    return host_batch(sg, backend=backend, ell_buckets=ell_buckets,
+                      with_transpose=with_transpose).to(
+                          resolve_device(device))
 
 
 def _combine(mode: str, beta: torch.Tensor, hist: torch.Tensor,
@@ -212,14 +234,172 @@ def make_infer_step(gnn: GNN, num_nodes: int, *, backend: str = "segment",
     return infer
 
 
-def commit_rows(store: HistoricalState, batch: Batch, rows: torch.Tensor,
-                num_nodes: int) -> HistoricalState:
-    """Write an infer step's refreshed batch rows into ``store.h`` in place.
+def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
+                    backend: str = "segment",
+                    stream: Optional[bool] = None) -> Callable:
+    """Build ``step(params, store, batch, x_full, self_w_full)``.
 
-    ``rows[l]`` goes to ``store.h[l][batch_gids]``; padded rows are dropped
-    (``scatter_rows``). Returns ``store``.
+    Returns ``(loss, grads, rows, metrics)``. ``grads`` has the layout of
+    ``params`` (``GNN.params()``). ``rows`` is a :class:`HistoricalState` of
+    batch rows, ``h`` (L, NB, d) and ``v`` (L-1, NB, d) (None for L = 1),
+    for the caller to write with :func:`commit_rows` once it accepts the
+    step; None when ``method.store_writes`` is False.
+
+    ``backend`` selects the aggregation hot path: ``"segment"`` is the plain
+    PyTorch gather + ``index_add_``; ``"ell"`` aggregates through the CUDA
+    bucketed ELL SpMM (the forward and, through its autograd Function, the
+    per-layer vjp cotangents over Aᵀ) and compensates halo rows with the
+    fused ``lmc_compensate`` kernel; the batch must carry the bucketed
+    adjacency and its transpose (``to_device_batch(sg, backend="ell")``).
+    ``backend="ti"`` aggregates on the same SpMM but compensates with the
+    message-invariance estimator and never reads ``store`` (it may be None).
+    ``stream=False`` runs the resident-source kernels (small graphs only).
     """
-    for l in range(rows.shape[0]):
-        scatter_rows(store.h[l], batch.batch_gids, batch.batch_mask, rows[l],
-                     num_nodes)
+    method.validate()
+    assert backend in AGG_BACKENDS, backend
+    L = gnn.num_layers
+    layer0_input_is_h0 = gnn.arch == "gcnii"
+
+    def step(params: dict, store: Optional[HistoricalState], batch: Batch,
+             x_full: torch.Tensor, self_w_full: torch.Tensor):
+        nb = batch.batch_gids.shape[0]
+        if backend in ("ell", "ti") and batch.ell is None:
+            raise ValueError(
+                f'backend="{backend}" needs batch.ell; build the batch with '
+                f'to_device_batch(sg, backend="{backend}")')
+        if backend == "ti" and batch.ti_scale is None:
+            raise ValueError(
+                'backend="ti" needs batch.ti_scale; build the batch with '
+                'to_device_batch(sg, backend="ti")')
+        params = tree_map(torch.Tensor.detach, params)
+        ext_gids = torch.cat([batch.batch_gids, batch.halo_gids])
+        x_ext = gather_rows(x_full, ext_gids)
+        self_w_ext = gather_rows(self_w_full, ext_gids)
+        edges = EdgeList(batch.edge_src, batch.edge_dst, batch.edge_w)
+        vjp_emb = None
+        if params["embed"]:
+            h0_ext, vjp_emb = torch.func.vjp(
+                lambda e: gnn.embed_apply(e, x_ext), params["embed"])
+        else:
+            h0_ext = gnn.embed_apply(params["embed"], x_ext)
+        aux = LayerAux(edges=edges, x=x_ext, h0=h0_ext, self_w=self_w_ext,
+                       ell=batch.ell if backend in ("ell", "ti") else None,
+                       stream=stream)
+        bmask = batch.batch_mask[:, None]
+        hmask = batch.halo_mask[:, None]
+
+        # ---------------- forward (Eqs. 8-10), one vjp per layer -------------
+        h_in = h0_ext
+        vjps, h_rows = [], []
+        for l in range(L):
+            def f(lp_, hin_, h0_, _l=l):
+                return gnn.layer_apply(lp_, _l, hin_, aux._replace(h0=h0_))
+
+            h_out, vjp_fn = torch.func.vjp(f, gnn.layer_params(params, l),
+                                           h_in, h0_ext)
+            vjps.append(vjp_fn)
+            h_bar_batch = h_out[:nb] * bmask
+            h_hat_halo = _compensate(method.fwd_mode, backend,
+                                     None if backend == "ti" else store.h[l],
+                                     batch.halo_gids, batch.beta, h_out[nb:],
+                                     batch.halo_mask, stream, batch.ti_scale)
+            h_rows.append(h_bar_batch)
+            h_in = torch.cat([h_bar_batch, h_hat_halo])
+
+        # ---------------- loss & top-layer adjoints (Eq. 6/14 + V^L init) ----
+        inv_vl = batch.loss_scale / batch.grad_scale   # = 1/|V_L|
+        labels = batch.labels.long()[:, None]
+        mask_b = batch.labeled_mask.clone()
+        mask_b[nb:] = 0.0
+        mask_h = batch.labeled_mask.clone()
+        mask_h[:nb] = 0.0
+
+        def unit_loss(head, h_rows_, m):
+            logits = gnn.head_apply(head, h_rows_)
+            ll = F.log_softmax(logits, dim=-1).gather(1, labels)[:, 0]
+            return -(ll * m).sum() * inv_vl, logits
+
+        f1, vjp1, logits_ext = torch.func.vjp(
+            lambda hd, h: unit_loss(hd, h, mask_b), params["head"], h_in,
+            has_aux=True)
+        one = torch.ones_like(f1)
+        g_head_unit, V1 = vjp1(one)
+        V_bar = V1[:nb] * bmask
+        if method.bwd_mode == "none":
+            V_hat = torch.zeros_like(V1[nb:])
+        else:
+            _, vjp2, _ = torch.func.vjp(
+                lambda h: unit_loss(params["head"], h, mask_h), h_in,
+                has_aux=True)
+            (V2,) = vjp2(one)
+            V_hat = V2[nb:] * hmask
+
+        # ---------------- backward message passing (Eqs. 11-13, 7/15) --------
+        grads_layers = [None] * L
+        v_rows = [None] * (L - 1)
+        v0_acc = torch.zeros_like(h0_ext)
+        for l in reversed(range(L)):
+            g_lp, hgrad, h0grad = vjps[l](
+                torch.cat([V_bar, torch.zeros_like(V_hat)]))
+            grads_layers[l] = g_lp
+            if method.bwd_mode != "none":
+                _, hgrad, h0grad = vjps[l](torch.cat([V_bar, V_hat]))
+            v0_acc = v0_acc + h0grad
+            if l >= 1:
+                V_bar_next = hgrad[:nb] * bmask
+                V_hat = _compensate(method.bwd_mode, backend,
+                                    None if backend == "ti" else store.v[l - 1],
+                                    batch.halo_gids, batch.beta, hgrad[nb:],
+                                    batch.halo_mask, stream, batch.ti_scale)
+                v_rows[l - 1] = V_bar_next
+                V_bar = V_bar_next
+            elif layer0_input_is_h0:
+                v0_acc = v0_acc + hgrad
+
+        # ---------------- parameter gradients (Eq. 7 with A.3.1 scaling) -----
+        scale = batch.grad_scale
+        grads = {
+            "layers": {k: [scale * grads_layers[l][k] for l in range(L)]
+                       for k in params["layers"]},
+            "head": {k: scale * g for k, g in g_head_unit.items()},
+            "embed": {},
+        }
+        if vjp_emb is not None:
+            (g_emb,) = vjp_emb(v0_acc * torch.cat(
+                [bmask, torch.zeros_like(hmask)]))
+            grads["embed"] = {k: scale * g for k, g in g_emb.items()}
+
+        # ---------------- metrics -------------------------------------------
+        loss = f1 * scale
+        pred = logits_ext[:nb].argmax(-1)
+        lab_b = mask_b[:nb]
+        acc = ((pred == labels[:nb, 0]) * lab_b).sum() / lab_b.sum().clamp_min(
+            1.0)
+        rows = None
+        if method.store_writes:
+            rows = HistoricalState(
+                h=torch.stack(h_rows),
+                v=torch.stack(v_rows) if L > 1 else None)
+        return loss, grads, rows, {"loss": loss, "train_acc": acc}
+
+    return step
+
+
+def commit_rows(store: HistoricalState, batch: Batch, rows,
+                num_nodes: int) -> HistoricalState:
+    """Write a step's refreshed batch rows into the store in place.
+
+    ``rows`` is an infer step's (L, NB, d) tensor of ``h`` rows, or a train
+    step's :class:`HistoricalState` of ``h`` and ``v`` rows. ``rows.h[l]``
+    goes to ``store.h[l][batch_gids]`` (and ``rows.v[l]`` to ``store.v[l]``);
+    padded rows are dropped (``scatter_rows``). Returns ``store``.
+    """
+    h_rows, v_rows = ((rows.h, rows.v) if isinstance(rows, HistoricalState)
+                      else (rows, None))
+    for buf, new in ((store.h, h_rows), (store.v, v_rows)):
+        if new is None:
+            continue
+        for l in range(new.shape[0]):
+            scatter_rows(buf[l], batch.batch_gids, batch.batch_mask, new[l],
+                         num_nodes)
     return store

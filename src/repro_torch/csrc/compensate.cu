@@ -23,6 +23,18 @@
 // bit-identical to the plain PyTorch version. Rows with mask == 0 are
 // computed like any other (0 * NaN stays NaN, as on the TPU), and gid is
 // clamped to [0, M-1], the clip semantics of gather_rows.
+//
+// Resident-store variant (`repro_lmc_compensate_resident`) replaces the TPU
+// kernel `_comp_resident_kernel` of the same file (stream=False), where the
+// whole (M, block_d) store slab rides into VMEM as one block. Here one block
+// per (256-row tile, bd-column tile) stages store[:, c0:c0+bd] of all M store
+// rows in dynamic shared memory (16-byte loads where D allows), then its
+// warps compute each output row from the slab, lanes across the columns,
+// with the same casts and explicitly rounded operations as the streaming
+// kernel: bit-equal to it and to the plain version in f32. The wrapper picks
+// bd as for the resident SpMM (the widest multiple of the 16-byte vector
+// that fits the opt-in shared memory per block), so only small stores fit.
+// Every row tile reloads the slab, by construction far above the bound.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -137,7 +149,107 @@ void launch(int vector, const void* store, const void* gids, const void* beta,
         s, g, b, f, m, o, N, M, D);
 }
 
+constexpr int kResTileRows = 256;   // output rows per resident block
+
+template <typename TS, typename TF, bool kVector>
+__global__ void __launch_bounds__(kWarps * 32)
+compensate_resident_kernel(const typename TS::raw* __restrict__ store,
+                           const int32_t* __restrict__ gids,
+                           const float* __restrict__ beta,
+                           const typename TF::raw* __restrict__ fresh,
+                           const float* __restrict__ mask,
+                           typename TF::raw* __restrict__ out, int N, int M,
+                           int D, int bd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* slab = reinterpret_cast<typename TS::raw*>(smem);   // (M, bd)
+  const int col0 = blockIdx.y * bd;
+  const int width = min(bd, D - col0);
+
+  // stage store[:, col0:col0+width] of every store row
+  if constexpr (kVector) {   // 16-byte vectors of the store dtype
+    constexpr int kSVec = 16 / sizeof(typename TS::raw);
+    const int nvec = width / kSVec;
+    for (int t = threadIdx.x; t < M * nvec; t += blockDim.x) {
+      const int r = t / nvec, c = (t - r * nvec) * kSVec;
+      *reinterpret_cast<uint4*>(slab + static_cast<size_t>(r) * bd + c) =
+          *reinterpret_cast<const uint4*>(store + static_cast<size_t>(r) * D +
+                                          col0 + c);
+    }
+  } else {
+    for (int t = threadIdx.x; t < M * width; t += blockDim.x) {
+      const int r = t / width, c = t - r * width;
+      slab[static_cast<size_t>(r) * bd + c] =
+          store[static_cast<size_t>(r) * D + col0 + c];
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row_end = min(N, (blockIdx.x + 1) * kResTileRows);
+  for (int row = blockIdx.x * kResTileRows + (threadIdx.x >> 5);
+       row < row_end; row += kWarps) {
+    const int g = min(max(gids[row], 0), M - 1);
+    const float b = TF::round(beta[row]);
+    const float m = TF::round(mask[row]);
+    const typename TS::raw* s = slab + static_cast<size_t>(g) * bd;
+    const typename TF::raw* f = fresh + static_cast<size_t>(row) * D + col0;
+    typename TF::raw* o = out + static_cast<size_t>(row) * D + col0;
+    for (int col = lane; col < width; col += 32)
+      o[col] = TF::store(lerp_mask(m, b, TF::round(TS::load(s[col])),
+                                   TF::load(f[col])));
+  }
+}
+
+template <typename TS, typename TF>
+cudaError_t launch_resident(int vector, const void* store, const void* gids,
+                            const void* beta, const void* fresh,
+                            const void* mask, void* out, int N, int M, int D,
+                            int bd, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(M) * bd * sizeof(typename TS::raw);
+  decltype(&compensate_resident_kernel<TS, TF, true>) kernel =
+      vector ? &compensate_resident_kernel<TS, TF, true>
+             : &compensate_resident_kernel<TS, TF, false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kResTileRows - 1) / kResTileRows, (D + bd - 1) / bd);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const typename TS::raw*>(store),
+      static_cast<const int32_t*>(gids), static_cast<const float*>(beta),
+      static_cast<const typename TF::raw*>(fresh),
+      static_cast<const float*>(mask), static_cast<typename TF::raw*>(out),
+      N, M, D, bd);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Resident-store entry point: the arguments of `repro_lmc_compensate`, plus
+// `bd`, the column-tile width, a multiple of the store's 16-byte vector with
+// M * bd * sizeof(store) within the opt-in shared memory per block. `vector`
+// selects 16-byte staging loads (D a multiple of 16 / sizeof(store), store
+// 16-byte aligned). Returns the first CUDA error (0 on success).
+extern "C" int repro_lmc_compensate_resident(
+    const void* store, const void* gids, const void* beta, const void* fresh,
+    const void* mask, void* out, int N, int M, int D, int bd, int store_bf16,
+    int fresh_bf16, int vector, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (store_bf16 && fresh_bf16)
+    e = launch_resident<BF16, BF16>(vector, store, gids, beta, fresh, mask,
+                                    out, N, M, D, bd, s);
+  else if (store_bf16)
+    e = launch_resident<BF16, F32>(vector, store, gids, beta, fresh, mask,
+                                   out, N, M, D, bd, s);
+  else if (fresh_bf16)
+    e = launch_resident<F32, BF16>(vector, store, gids, beta, fresh, mask,
+                                   out, N, M, D, bd, s);
+  else
+    e = launch_resident<F32, F32>(vector, store, gids, beta, fresh, mask,
+                                  out, N, M, D, bd, s);
+  return static_cast<int>(e);
+}
 
 // Plain C entry point (loaded with ctypes). store: (M, D) f32 or bf16;
 // gids: (N,) int32; beta, mask: (N,) f32; fresh: (N, D) f32 or bf16;

@@ -28,6 +28,21 @@
 //
 // Left for later work: skipping all-padding rows and the padding slots of
 // wide buckets, and prefetching the next gathered rows (cp.async or TMA).
+//
+// Resident-source variant (`repro_ell_spmm_resident`) replaces the TPU kernel
+// `_spmm_resident_kernel` of the same file (`ell_spmm`, stream=False), where
+// the whole (M, block_d) source slab rides into VMEM as one block. Here one
+// block per (256-row tile, bd-column tile) first stages the column slab
+// h[:, c0:c0+bd] of all M source rows in dynamic shared memory (16-byte loads
+// where D allows), then its warps gather rows out of shared memory, one
+// output row per warp at a time, lanes across the tile's columns. The wrapper
+// picks bd, the widest multiple of the 16-byte vector with M*bd elements in
+// the card's opt-in shared memory per block, so only small sources fit
+// (about 14.5k rows at one vector per row). The arithmetic is the streaming
+// kernel's: f32 fmaf in k order from 0, padding slots multiplied through,
+// indices clamped, so the two kernels agree bit for bit. Every row tile
+// reloads the slab: this design sits far above its memory bound by
+// construction, and it is kept for small sources and for comparison.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -153,7 +168,138 @@ void dispatch_vector(int vector, const void* idx, const void* w,
     launch<TW, TH, false>(idx, w, h, out, rows, K, M, D, stream);
 }
 
+constexpr int kResWarps = 8;       // warps per resident block
+constexpr int kResTileRows = 256;  // output rows per resident block
+
+template <typename TW, typename TH, bool kVector>
+__global__ void __launch_bounds__(kResWarps * 32)
+ell_spmm_resident_kernel(const int32_t* __restrict__ idx,
+                         const typename TW::raw* __restrict__ w,
+                         const typename TH::raw* __restrict__ h,
+                         typename TH::raw* __restrict__ out,
+                         int rows, int K, int M, int D, int bd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* slab = reinterpret_cast<typename TH::raw*>(smem);   // (M, bd)
+  const int col0 = blockIdx.y * bd;
+  const int width = min(bd, D - col0);
+
+  // stage h[:, col0:col0+width] of every source row
+  if constexpr (kVector) {   // D % kVec == 0 and bd % kVec == 0: whole vectors
+    constexpr int kVec = TH::kVec;
+    const int nvec = width / kVec;
+    for (int t = threadIdx.x; t < M * nvec; t += blockDim.x) {
+      const int r = t / nvec, c = (t - r * nvec) * kVec;
+      *reinterpret_cast<uint4*>(slab + static_cast<size_t>(r) * bd + c) =
+          *reinterpret_cast<const uint4*>(h + static_cast<size_t>(r) * D +
+                                          col0 + c);
+    }
+  } else {
+    for (int t = threadIdx.x; t < M * width; t += blockDim.x) {
+      const int r = t / width, c = t - r * width;
+      slab[static_cast<size_t>(r) * bd + c] =
+          h[static_cast<size_t>(r) * D + col0 + c];
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row_end = min(rows, (blockIdx.x + 1) * kResTileRows);
+  for (int row = blockIdx.x * kResTileRows + (threadIdx.x >> 5);
+       row < row_end; row += kResWarps) {   // uniform per warp
+    const int32_t* idx_r = idx + static_cast<size_t>(row) * K;
+    const typename TW::raw* w_r = w + static_cast<size_t>(row) * K;
+    typename TH::raw* dst = out + static_cast<size_t>(row) * D + col0;
+    for (int c0 = 0; c0 < width; c0 += 32) {
+      const int col = c0 + lane;
+      float acc = 0.f;
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        int my_j = 0;
+        float my_w = 0.f;
+        if (k0 + lane < K) {
+          my_j = idx_r[k0 + lane];
+          my_w = TW::load(w_r[k0 + lane]);
+        }
+        my_j = min(max(my_j, 0), M - 1);
+        const int kn = min(32, K - k0);
+        for (int kk = 0; kk < kn; ++kk) {
+          const int j = __shfl_sync(0xffffffffu, my_j, kk);
+          const float wk = __shfl_sync(0xffffffffu, my_w, kk);
+          if (col < width)
+            acc = fmaf(wk, TH::load(slab[static_cast<size_t>(j) * bd + col]),
+                       acc);
+        }
+      }
+      if (col < width) dst[col] = TH::store(acc);
+    }
+  }
+}
+
+template <typename TW, typename TH, bool kVector>
+cudaError_t launch_resident(const void* idx, const void* w, const void* h,
+                            void* out, int rows, int K, int M, int D, int bd,
+                            cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(M) * bd * sizeof(typename TH::raw);
+  auto kernel = ell_spmm_resident_kernel<TW, TH, kVector>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((rows + kResTileRows - 1) / kResTileRows,
+                  (D + bd - 1) / bd);
+  kernel<<<grid, kResWarps * 32, smem, stream>>>(
+      static_cast<const int32_t*>(idx),
+      static_cast<const typename TW::raw*>(w),
+      static_cast<const typename TH::raw*>(h),
+      static_cast<typename TH::raw*>(out), rows, K, M, D, bd);
+  return cudaGetLastError();
+}
+
+template <typename TW, typename TH>
+cudaError_t dispatch_resident(int vector, const void* idx, const void* w,
+                              const void* h, void* out, int rows, int K,
+                              int M, int D, int bd, cudaStream_t stream) {
+  if (vector)
+    return launch_resident<TW, TH, true>(idx, w, h, out, rows, K, M, D, bd,
+                                         stream);
+  return launch_resident<TW, TH, false>(idx, w, h, out, rows, K, M, D, bd,
+                                        stream);
+}
+
 }  // namespace
+
+// The card's opt-in shared memory per block, in bytes, for `device`
+// (232,448 on an H100). Returns the CUDA error code (0 on success).
+extern "C" int repro_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
+// Resident-source entry point: the arguments of `repro_ell_spmm`, plus `bd`,
+// the column-tile width, a multiple of the 16-byte vector with
+// M * bd * sizeof(h) within the opt-in shared memory per block. `vector`
+// selects 16-byte staging loads (D % (16 / sizeof(h)) == 0, h 16-byte
+// aligned). Returns the first CUDA error (0 on success).
+extern "C" int repro_ell_spmm_resident(const void* idx, const void* w,
+                                       const void* h, void* out, int rows,
+                                       int K, int M, int D, int bd,
+                                       int w_bf16, int h_bf16, int vector,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (w_bf16 && h_bf16)
+    e = dispatch_resident<BF16, BF16>(vector, idx, w, h, out, rows, K, M, D,
+                                      bd, s);
+  else if (w_bf16)
+    e = dispatch_resident<BF16, F32>(vector, idx, w, h, out, rows, K, M, D,
+                                     bd, s);
+  else if (h_bf16)
+    e = dispatch_resident<F32, BF16>(vector, idx, w, h, out, rows, K, M, D,
+                                     bd, s);
+  else
+    e = dispatch_resident<F32, F32>(vector, idx, w, h, out, rows, K, M, D,
+                                    bd, s);
+  return static_cast<int>(e);
+}
 
 // Plain C entry point (loaded with ctypes). idx: (rows, K) int32; w: (rows, K)
 // f32 or bf16; h: (M, D) f32 or bf16; out: (rows, D) in h's dtype. All

@@ -328,3 +328,40 @@ def build_subgraph(
         grad_scale=grad_scale, ti_scale=ti_scale,
         n_batch_real=nb, n_halo_real=nh, n_edges_real=ne)
 
+
+def padded_sizes_for(graph: Graph, parts: np.ndarray, num_parts: int, c: int,
+                     include_halo: bool = True) -> tuple[int, int, int]:
+    """Worst-case (pad_batch, pad_halo, pad_edges) over any c-cluster batch.
+
+    Conservative: sums the c largest per-cluster stats, rounded up to friendly
+    multiples so one jit shape covers every epoch. Per-cluster halo sizes and
+    halo volumes are computed exactly (cheap: one CSR sweep per cluster).
+    """
+    degrees = graph.degrees()
+    src = np.repeat(np.arange(graph.num_nodes), np.diff(graph.indptr))
+    dst = graph.indices
+    sizes = np.bincount(parts, minlength=num_parts).astype(np.int64)
+    vol = np.zeros(num_parts, dtype=np.int64)
+    np.add.at(vol, parts, degrees)
+
+    # per-cluster halo node count and halo volume (degrees of halo nodes)
+    halo_sizes = np.zeros(num_parts, dtype=np.int64)
+    halo_vols = np.zeros(num_parts, dtype=np.int64)
+    if include_halo:
+        cross = parts[src] != parts[dst]
+        for p in range(num_parts):
+            # halo of cluster p = unique dst of cross edges leaving p
+            h = np.unique(dst[cross & (parts[src] == p)])
+            halo_sizes[p] = h.size
+            halo_vols[p] = degrees[h].sum()
+
+    top_sizes = np.sort(sizes)[::-1][:c].sum()
+    top_vol = np.sort(vol)[::-1][:c].sum()
+    top_halo = min(np.sort(halo_sizes)[::-1][:c].sum(), graph.num_nodes)
+    top_halo_vol = np.sort(halo_vols)[::-1][:c].sum()
+
+    pad_batch = _round_up(top_sizes, 64)
+    pad_halo = _round_up(max(top_halo, 1), 64) if include_halo else 64
+    # edges into batch rows ≤ batch volume; edges into halo rows ≤ halo volume
+    pad_edges = _round_up(top_vol + top_halo_vol + 64, 256)
+    return int(pad_batch), int(pad_halo), int(pad_edges)

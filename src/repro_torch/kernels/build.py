@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_smem: dict = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -80,6 +81,43 @@ def build_kernels(names=KERNELS) -> dict:
         if errors:
             raise KernelBuildError("\n".join(errors))
         return paths
+
+
+def smem_optin(device_index: int) -> int:
+    """The card's opt-in shared memory per block in bytes (232,448 on an
+    H100): what one block of a resident-source kernel may stage."""
+    with _lock:
+        hit = _smem.get(device_index)
+    if hit is None:
+        fn = load_kernel("ell_spmm", "repro_smem_optin",
+                         [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        rc = fn(device_index, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed with CUDA "
+                               f"error {rc} on device {device_index}")
+        hit = out.value
+        with _lock:
+            _smem[device_index] = hit
+    return hit
+
+
+def slab_cols(m: int, d: int, elt: int, smem_bytes: int) -> int:
+    """Column-tile width of a resident-source kernel: the widest multiple of
+    the 16-byte vector for which an (m, width) slab of ``elt``-byte elements
+    fits ``smem_bytes``, at most D rounded up to that vector.
+
+    Raises ValueError when not even one vector per row fits (about 14.5k
+    rows on an H100): the source is too large to be resident.
+    """
+    vec = 16 // elt
+    cols = (smem_bytes // (max(m, 1) * elt)) // vec * vec
+    if cols < vec:
+        raise ValueError(
+            f"resident source of M={m} rows does not fit: one 16-byte vector "
+            f"per row needs {max(m, 1) * 16} bytes of shared memory, the "
+            f"card allows {smem_bytes} per block; use stream=True")
+    return min(cols, -(-d // vec) * vec)
 
 
 def load_kernel(name: str, symbol: str, argtypes: list):

@@ -1,4 +1,4 @@
-"""Degree-bucketed ELL: host construction and the forward wrappers of the kernels.
+"""Degree-bucketed ELL: host construction and the differentiable kernel wrappers.
 
 `bucketed_spmm` is the deployable aggregation: rows are degree-bucketed host
 side (powers of two) so ELL padding waste stays < 2x, each bucket runs one
@@ -9,10 +9,11 @@ an (n+1, D) buffer whose last row catches the padding rows and is dropped.
 kernel (Eq. 9/12). Neither wrapper pads D or copies the store: the kernels
 mask the tail themselves.
 
-Both are forward-only here: they raise if an input requires grad under
-autograd (the training path adds their `autograd.Function`s). `stream` keeps
-the reference's knob: None/True run the streaming kernels, False (the
-reference's resident-VMEM variants) is not ported yet.
+Both are `torch.autograd.Function`s (setup_context style, so `torch.func.vjp`
+takes them too), with the reference's custom VJPs: the SpMM's backward is the
+same kernel over the bucketed Aᵀ, the compensation's a gather/scatter in
+plain PyTorch. `stream` keeps the reference's knob: None/True run the
+streaming kernels, False the resident-source kernels (small sources only).
 
 `build_ell` / `ell_from_coo` are the reference's bulk-numpy preprocessors,
 copied so that the bucket arrays equal the reference's exactly; they return
@@ -26,8 +27,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.compensate import lmc_compensate_kernel
-from repro_torch.kernels.ell_spmm import ell_spmm
+from repro_torch.kernels.compensate import (lmc_compensate_kernel,
+                                            lmc_compensate_resident)
+from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_resident
 
 
 def _round_up(x: int, m: int) -> int:
@@ -254,52 +256,137 @@ def ell_from_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _forward_only(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward-only in this package: an input requires "
-            "grad, and its backward pass is not implemented yet. Run it "
-            "under torch.no_grad() or detach the inputs.")
+def _spmm(bucket_idx, bucket_w, bucket_rows, num_rows: int, h: torch.Tensor,
+          stream: Optional[bool]) -> torch.Tensor:
+    """Σ over buckets of one kernel launch each, summed by ``index_add_``
+    into an (n+1, D) buffer whose row n catches the padding rows."""
+    spmm = ell_spmm_resident if stream is False else ell_spmm
+    h = h.contiguous()
+    out = h.new_zeros((num_rows + 1, h.shape[1]))
+    for idx, w, rows in zip(bucket_idx, bucket_w, bucket_rows):
+        out.index_add_(0, rows, spmm(idx, w, h))
+    return out[:num_rows]
 
 
-def _check_stream(name: str, stream: Optional[bool]) -> None:
-    if stream is False:
-        raise NotImplementedError(
-            f"{name}(stream=False): the resident-source kernels are not "
-            "ported yet (ROADMAP.md, queue B); use stream=None")
+class _BucketedSpMM(torch.autograd.Function):
+    """out = A h; dh = Aᵀ ct on the same kernel over the bucketed Aᵀ; the
+    weight cotangents only when asked for (``ctx.needs_input_grad``)."""
+
+    @staticmethod
+    def forward(g, stream, h, *bucket_w):
+        return _spmm(g.bucket_idx, bucket_w, g.bucket_rows, g.num_rows, h,
+                     stream)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g, stream, h, *bucket_w = inputs
+        ctx.g, ctx.stream = g, stream
+        ctx.w_dtypes = tuple(w.dtype for w in bucket_w)
+        ctx.save_for_backward(h)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.g
+        (h,) = ctx.saved_tensors
+        dh = None
+        if ctx.needs_input_grad[2]:
+            t = g.transpose
+            if t is None:
+                raise ValueError(
+                    "bucketed_spmm: gradient requested but the ELLGraph was "
+                    "built with with_transpose=False; the SpMM's backward "
+                    "needs the bucketed Aᵀ")
+            dh = _spmm(t.bucket_idx, t.bucket_w, t.bucket_rows, t.num_rows,
+                       ct, ctx.stream)
+        # dw[i,k] = ⟨ct[rows[i]], h[idx[i,k]]⟩; the zero row n of the padded
+        # ct zeroes the all-padding rows (padding slots get ct·h[0], as in
+        # the reference: never read back)
+        dws = [None] * len(g.bucket_idx)
+        if any(ctx.needs_input_grad[3:]):
+            ctp = torch.cat([ct, ct.new_zeros((1, ct.shape[1]))])
+            for i, (idx, rows) in enumerate(zip(g.bucket_idx,
+                                                g.bucket_rows)):
+                if ctx.needs_input_grad[3 + i]:
+                    dws[i] = torch.einsum(
+                        "rd,rkd->rk", _gather_clip(ctp, rows),
+                        _gather_clip(h, idx.reshape(-1)).reshape(
+                            *idx.shape, h.shape[1])).to(ctx.w_dtypes[i])
+        return (None, None, dh, *dws)
+
+
+def _gather_clip(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """buf[ids] with ids clipped into ``[0, len(buf))`` (the reference's
+    ``mode="clip"`` gather)."""
+    return buf.index_select(0, ids.clamp(0, buf.shape[0] - 1))
 
 
 def bucketed_spmm(g: ELLGraph, h: torch.Tensor, *,
                   stream: Optional[bool] = None) -> torch.Tensor:
     """out = A h over all degree buckets: out[i] = Σ_{j in N(i)} w_ij h[j].
 
-    One ``ell_spmm`` launch per bucket; partial rows (and split heavy rows)
+    One ``ell_spmm`` launch per bucket (``stream=False``: the resident-source
+    kernel ``ell_spmm_resident``); partial rows (and split heavy rows)
     combine with ``index_add_`` into an (n+1, D) buffer whose row n catches
     the padding rows. On CUDA that ``index_add_`` uses atomics, so a row
     split across buckets (degree > max bucket) sums in no fixed order.
+
+    Differentiable (``torch.autograd`` and ``torch.func``): dh runs the same
+    kernel over ``g.transpose`` with the same ``stream`` setting, so the
+    graph must be built with ``with_transpose=True``; d(bucket_w) is formed
+    only when a bucket weight requires grad.
     """
-    _check_stream("bucketed_spmm", stream)
-    _forward_only("bucketed_spmm", h, *g.bucket_w)
-    n = g.num_rows
-    out = h.new_zeros((n + 1, h.shape[1]))   # row n catches padding rows
-    for idx, w, rows in zip(g.bucket_idx, g.bucket_w, g.bucket_rows):
-        out.index_add_(0, rows, ell_spmm(idx, w, h))
-    return out[:n]
+    return _BucketedSpMM.apply(g, stream, h, *g.bucket_w)
+
+
+class _Compensate(torch.autograd.Function):
+    """Eq. 9/12 on the fused kernel; the adjoint is the reference's
+    gather/scatter (``d_store`` an ``index_add_`` into zeros)."""
+
+    @staticmethod
+    def forward(store, gids, beta, fresh, mask, stream):
+        kernel = (lmc_compensate_resident if stream is False
+                  else lmc_compensate_kernel)
+        return kernel(store, gids, beta.float(), fresh.contiguous(),
+                      mask.float())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        store, gids, beta, fresh, mask, _ = inputs
+        ctx.save_for_backward(store, gids, beta, fresh, mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        store, gids, beta, fresh, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        hist = _gather_clip(store, gids)
+        d_store = d_beta = d_fresh = d_mask = None
+        if need[0]:   # out-of-range gids are dropped, as the reference's scatter
+            keep = (gids >= 0) & (gids < store.shape[0])
+            d_store = torch.zeros_like(store).index_add_(
+                0, gids[keep].long(),
+                ((mask * (1.0 - beta))[:, None] * ct)[keep].to(store.dtype))
+        if need[2]:
+            d_beta = (ct * mask[:, None] * (fresh - hist)).sum(-1).to(
+                beta.dtype)
+        if need[3]:
+            d_fresh = (ct * (mask * beta)[:, None]).to(fresh.dtype)
+        if need[4]:
+            d_mask = (ct * ((1.0 - beta)[:, None] * hist
+                            + beta[:, None] * fresh)).sum(-1).to(mask.dtype)
+        return d_store, None, d_beta, d_fresh, d_mask, None
 
 
 def lmc_compensate(store: torch.Tensor, gids: torch.Tensor,
                    beta: torch.Tensor, fresh: torch.Tensor,
                    mask: torch.Tensor, *,
                    stream: Optional[bool] = None) -> torch.Tensor:
-    """ĥ = mask · [(1-β)·store[gid] + β·fresh]  (Eq. 9/12), forward only.
+    """ĥ = mask · [(1-β)·store[gid] + β·fresh]  (Eq. 9/12), differentiable.
 
     store (M, D); gids/beta/mask (N,); fresh (N, D) -> (N, D). Arbitrary N
     and D; the store is read in place (never padded or copied).
+    ``stream=False`` runs the resident-store kernel (small stores only).
     """
-    _check_stream("lmc_compensate", stream)
-    _forward_only("lmc_compensate", store, beta, fresh, mask)
-    return lmc_compensate_kernel(store, gids, beta.float(), fresh,
-                                 mask.float())
+    return _Compensate.apply(store, gids, beta, fresh, mask, stream)
 
 
 def ell_aggregate_fn(g: ELLGraph, *, stream: Optional[bool] = None):

@@ -100,7 +100,8 @@ class StoreGateway:
         # batches get the scales attached directly — either way the ti
         # compensation path needs no rebuild
         kind = "ti" if self.agg_backend == "ell" else "segment"
-        hb = host_batch(sg, backend=kind, ell_buckets=self.ell_buckets)
+        hb = host_batch(sg, backend=kind, ell_buckets=self.ell_buckets,
+                        with_transpose=False)
         if hb.ti_scale is None:
             hb = hb._replace(ti_scale=torch.from_numpy(sg.ti_scale))
         return sg, hb

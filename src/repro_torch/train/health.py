@@ -14,9 +14,9 @@ assumes. The serving half of the reference module lives here:
 
 The training half (numerical-health checks, loss-spike baseline, the
 staleness tick and strict ρ check, the preemption / pipeline /
-checkpoint-write / NaN-batch faults) comes with the training step, and the
-client-side burst drill with a serving benchmark. Everything here is
-host-side numpy.
+checkpoint-write / NaN-batch faults) comes with the trainer's supervisor
+(ROADMAP.md, queue A), and the client-side burst drill with a serving
+benchmark. Everything here is host-side numpy.
 """
 from __future__ import annotations
 

@@ -38,7 +38,9 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_leaves_jax_and_reference_unloaded():
-    code = ("import sys, repro_torch.serve, repro_torch.convert; "
+    code = ("import sys, repro_torch.serve, repro_torch.convert, "
+            "repro_torch.train, repro_torch.optim, repro_torch.graph.sampler, "
+            "repro_torch.graph.partition; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -51,10 +53,13 @@ def test_import_leaves_jax_and_reference_unloaded():
 def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     """device=None means the card; without CUDA it raises instead of
     silently running on the CPU."""
-    from repro_torch.core import from_graph, init_history
-    from repro_torch.graph import make_sbm_dataset
+    from repro_torch.convert import state_from_reference
+    from repro_torch.core import LMC, from_graph, init_history, to_device_batch
+    from repro_torch.graph import ClusterSampler, make_sbm_dataset
     from repro_torch.models import make_gnn
+    from repro_torch.optim import sgd
     from repro_torch.serve import GNNServer, warm_store
+    from repro_torch.train import GNNTrainer
 
     g = make_sbm_dataset("ppi-cpu", seed=3)
     gnn = make_gnn("gcn", g.feature_dim, 16, g.num_classes, 2)
@@ -68,6 +73,13 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         init_history(2, 10, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GNNServer(gnn, g, gnn.params(), data=data)
+    sampler = ClusterSampler(g, 4, 1, parts=np.arange(g.num_nodes) % 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GNNTrainer(gnn, LMC, g, sampler, sgd())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        to_device_batch(sampler.sample(), backend="ell")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        state_from_reference(np.zeros((2, 3, 4)), np.zeros((1, 3, 4)))
     assert np.isfinite(data.x.numpy()).all()   # the CPU path still works
 
 

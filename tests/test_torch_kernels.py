@@ -6,8 +6,10 @@ Tolerances: f32 rtol = atol = 1e-5 (sums of ≤ 300 f32 products in another
 order); bf16 5e-2 compared in f32 (one bf16 ulp at |x| ≤ 8 is ≤ 3e-2, and the
 two packages round at different points).
 """
+import dataclasses
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +22,10 @@ from repro.kernels import lmc_compensate as j_lmc_compensate
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import (build_ell, bucketed_spmm, ell_aggregate_fn,
-                                 ell_spmm, lmc_compensate,
-                                 lmc_compensate_kernel, ref)
+                                 ell_spmm, ell_spmm_resident, lmc_compensate,
+                                 lmc_compensate_kernel,
+                                 lmc_compensate_resident, ref)
+from repro_torch.kernels.build import slab_cols
 from repro_torch.kernels.compensate import lmc_compensate_plain
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -179,24 +183,119 @@ def test_nan_in_padding_slot_propagates():
 
 
 def test_forward_only_and_stream_knob():
+    """Both wrappers differentiate under autograd, and ``stream=False`` (the
+    resident-source kernels; on the CPU their plain twin) gives the same
+    result as the streaming default. A graph built without Aᵀ serves the
+    forward only: its backward raises, naming the cause."""
     indptr, indices, weights = _heavy_csr(0)
-    g = build_ell(indptr, indices, weights)
+    g = build_ell(indptr, indices, weights, with_transpose=True)
     h = torch.ones((indptr.shape[0] - 1, 4), requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        bucketed_spmm(g, h)
+    out = bucketed_spmm(g, h)
+    assert torch.equal(bucketed_spmm(g, h, stream=False), out)
+    out.sum().backward()
+    assert h.grad.shape == h.shape and torch.isfinite(h.grad).all()
+    with pytest.raises(ValueError, match="with_transpose=False"):
+        bucketed_spmm(build_ell(indptr, indices, weights), h).sum().backward()
     with torch.no_grad():
-        bucketed_spmm(g, h)                       # fine without autograd
-    with pytest.raises(NotImplementedError, match="queue B"):
-        bucketed_spmm(g, h.detach(), stream=False)
+        bucketed_spmm(build_ell(indptr, indices, weights), h)   # forward only
     store = torch.ones((5, 4), requires_grad=True)
     args = (torch.zeros(3, dtype=torch.int32), torch.zeros(3),
             torch.ones((3, 4)), torch.ones(3))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        lmc_compensate(store, *args)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        lmc_compensate(store.detach(), *args, stream=False)
+    comp = lmc_compensate(store, *args)
+    assert torch.equal(lmc_compensate(store, *args, stream=False), comp)
+    comp.sum().backward()
+    assert store.grad is not None and store.grad[0].eq(3.0).all()
     agg = ell_aggregate_fn(g)
     assert agg(None, h.detach(), g.num_rows).shape == (g.num_rows, 4)
+
+
+@pytest.mark.parametrize("stream", [None, False], ids=["stream", "resident"])
+def test_bucketed_spmm_vjp_matches_reference(stream):
+    """dh (the SpMM over Aᵀ) and d(bucket_w) against ``jax.vjp`` of the
+    reference's custom VJP, its Pallas bodies in interpret mode."""
+    indptr, indices, weights = _heavy_csr(9)
+    n = indptr.shape[0] - 1
+    rng = np.random.default_rng(4)
+    h = rng.normal(size=(n, 24)).astype(np.float32)
+    ct = rng.normal(size=(n, 24)).astype(np.float32)
+    jg = j_build_ell(indptr, indices, weights)
+
+    def jfn(h_, ws):
+        g = dataclasses.replace(jg, bucket_w=ws)
+        return j_bucketed_spmm(g, h_, stream=stream is not False)
+
+    _, jvjp = jax.vjp(jfn, jnp.asarray(h), jg.bucket_w)
+    j_dh, j_dws = jvjp(jnp.asarray(ct))
+    tg = build_ell(indptr, indices, weights, with_transpose=True)
+    ws = [w.clone().requires_grad_() for w in tg.bucket_w]
+    th = torch.from_numpy(h).requires_grad_()
+    out = bucketed_spmm(dataclasses.replace(tg, bucket_w=tuple(ws)), th,
+                        stream=stream)
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(_np(th.grad), _np(j_dh), **F32)
+    for w, jw in zip(ws, j_dws, strict=True):
+        np.testing.assert_allclose(_np(w.grad), _np(jw), **F32)
+    # only what is asked for: no weight cotangent when no weight needs one
+    dh, = torch.autograd.grad(bucketed_spmm(tg, th, stream=stream), th,
+                              torch.from_numpy(ct))
+    torch.testing.assert_close(dh, th.grad, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("stream", [None, False], ids=["stream", "resident"])
+def test_lmc_compensate_vjp_matches_reference(stream):
+    """All four cotangents (store, beta, fresh, mask) against ``jax.vjp``;
+    duplicate gids accumulate into one store row."""
+    rng = np.random.default_rng(8)
+    n, m, d = 70, 40, 50
+    store = rng.normal(size=(m, d)).astype(np.float32)
+    gids = rng.integers(0, m, n).astype(np.int32)
+    beta = rng.random(n).astype(np.float32)
+    mask = (rng.random(n) > 0.2).astype(np.float32)
+    fresh = rng.normal(size=(n, d)).astype(np.float32)
+    ct = rng.normal(size=(n, d)).astype(np.float32)
+
+    def jfn(s, b, f, mk):
+        return j_lmc_compensate(s, jnp.asarray(gids), b, f, mk,
+                                stream=stream is not False)
+
+    _, jvjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (store, beta, fresh,
+                                                     mask)))
+    want = jvjp(jnp.asarray(ct))
+    ts = [torch.from_numpy(a).requires_grad_()
+          for a in (store, beta, fresh, mask)]
+    out = lmc_compensate(ts[0], torch.from_numpy(gids), ts[1], ts[2], ts[3],
+                         stream=stream)
+    out.backward(torch.from_numpy(ct))
+    for t, w in zip(ts, want, strict=True):
+        np.testing.assert_allclose(_np(t.grad), _np(w), **F32)
+
+
+def test_resident_wrappers_on_cpu_and_the_shared_memory_cap():
+    """On CPU tensors the resident wrappers run the plain twins and count no
+    launch. ``slab_cols`` picks the widest 16-byte multiple that fits the
+    card's shared memory per block and refuses a source that does not."""
+    rng = np.random.default_rng(6)
+    idx = torch.from_numpy(rng.integers(0, 30, (20, 8)).astype(np.int32))
+    w = torch.from_numpy(rng.random((20, 8)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(30, 12)).astype(np.float32))
+    before = (SPMM_MOD.LAUNCHES_RESIDENT, COMP_MOD.LAUNCHES_RESIDENT)
+    assert torch.equal(ell_spmm_resident(idx, w, h), ell_spmm(idx, w, h))
+    args = (h, idx[:, 0], torch.from_numpy(rng.random(20).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(20, 12)).astype(np.float32)),
+            torch.ones(20))
+    assert torch.equal(lmc_compensate_resident(*args),
+                       lmc_compensate_kernel(*args))
+    assert (SPMM_MOD.LAUNCHES_RESIDENT, COMP_MOD.LAUNCHES_RESIDENT) == before
+    h100 = 232_448
+    assert slab_cols(2880, 256, 4, h100) == 20       # arxiv-cpu SpMM source
+    assert slab_cols(4096, 256, 4, h100) == 12       # arxiv-cpu store
+    assert slab_cols(2880, 256, 2, h100) == 40       # bf16: 8-wide vectors
+    assert slab_cols(64, 50, 4, h100) == 52          # capped at D, rounded
+    assert slab_cols(14528, 256, 4, h100) == 4       # one vector per row
+    with pytest.raises(ValueError, match="M=14529 rows does not fit"):
+        slab_cols(14529, 256, 4, h100)
+    with pytest.raises(ValueError, match="M=169343 rows"):
+        slab_cols(169343, 256, 2, h100)
 
 
 def test_wrappers_validate_and_never_fall_back():
