@@ -24,7 +24,11 @@ which raises on failure:
      resident-source kernels at the arxiv-cpu training batch (buckets
      (3072, 8), (3072, 32), (3328, 128) over h (2880, 256); 2304 halo rows
      from a (4096, 256) store), each also bit-equal to the streaming kernel,
-     and a source past the shared-memory cap must raise;
+     and a source past the shared-memory cap must raise. The SpMM kernels
+     run there in their per-bucket form, one line per bucket, and then as
+     the main path runs them, one whole ``bucketed_spmm`` layer (a scatter
+     launch per bucket into one output) against its plain twin, against
+     ``torch.sparse.mm`` on the layer's whole CSR and against its bound;
   3. serve  — GNNServer(backend="ell") on the card with a 3-layer,
      256-wide GCN over arxiv-like: ~32 requests of 1-128 targets must all
      answer exact within 1e-4 of the full-graph forward, a forced ti batch
@@ -43,7 +47,8 @@ which raises on failure:
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
-shapes, launches summed over phases 3-5); the last line is
+shapes, the SpMM ones as a whole layer, launches summed over phases 3-5,
+with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
 """
@@ -199,10 +204,89 @@ def _comp_case(store, gids, fresh, mask, resident: bool = False,
     return c
 
 
+def _layer_case(label: str, ell, h, resident: bool, reps: int) -> dict:
+    """One whole ``bucketed_spmm`` call (every bucket's scatter launch into
+    one zeroed output, as the main path runs it) against its plain twin
+    (per-bucket plain results, ``index_add_``, padding rows dropped) and
+    against ``torch.sparse.mm`` on the layer's whole CSR. The bound counts
+    the distinct h rows of the real nonzeros, their idx and w, and the whole
+    (n, D) output written once. ``resident`` also holds the stream=False
+    layer bit for bit against the streaming one. Where the layer's time
+    goes: the zero fill of the output and each bucket's scatter launch,
+    each timed alone."""
+    import torch
+    from repro_torch.kernels import bucketed_spmm
+    from repro_torch.kernels.ell_spmm import (ell_spmm_resident_scatter,
+                                              ell_spmm_scatter,
+                                              ell_spmm_scatter_plain)
+    n, (m, d) = ell.num_rows, h.shape
+    stream = False if resident else None
+
+    def plain():
+        out = torch.zeros((n, d), dtype=h.dtype, device=h.device)
+        for idx, w, rows, r in zip(ell.bucket_idx, ell.bucket_w,
+                                   ell.bucket_rows, ell.bucket_real):
+            ell_spmm_scatter_plain(idx, w, rows, h, out, r)
+        return out
+
+    got, want = bucketed_spmm(ell, h, stream=stream), plain()
+    if resident:
+        assert torch.equal(got, bucketed_spmm(ell, h)), \
+            f"{label}: resident layer differs from the streaming one"
+    torch.cuda.synchronize()
+    tol = TOL_F32 if h.dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    err = float((got.float() - want.float()).abs().max())
+    dst, src, val = [], [], []
+    for idx, w, rows, r in zip(ell.bucket_idx, ell.bucket_w, ell.bucket_rows,
+                               ell.bucket_real):
+        nz = w[:r] != 0
+        dst.append(rows[:r].long()[:, None].expand_as(nz)[nz])
+        src.append(idx[:r].long()[nz])
+        val.append(w[:r][nz])
+    src = torch.cat(src)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(dst), src]), torch.cat(val).to(h.dtype),
+        (n, m)).coalesce().to_sparse_csr()
+    lib = torch.sparse.mm(csr, h)
+    torch.testing.assert_close(lib.float(), want.float(), rtol=tol, atol=tol)
+    del got, want, lib
+    nnz, hs = int(src.numel()), h.element_size()
+    nbytes = (int(torch.unique(src).numel()) * d * hs + nnz * (4 + 4)
+              + n * d * hs)
+    c = {"err": err,
+         "ms": _time_ms(lambda: bucketed_spmm(ell, h, stream=stream), reps),
+         "plain_ms": _time_ms(plain, reps),
+         "library_ms": _time_ms(lambda: torch.sparse.mm(csr, h), reps),
+         "bound_ms": _bound_ms(nbytes, 2.0 * nnz * d), "nnz": nnz}
+    if resident:
+        c["stream_ms"] = _time_ms(lambda: bucketed_spmm(ell, h), reps)
+    scatter = ell_spmm_resident_scatter if resident else ell_spmm_scatter
+    out = torch.zeros((n, d), dtype=h.dtype, device=h.device)
+    parts = [_time_ms(lambda: torch.zeros((n, d), dtype=h.dtype,
+                                          device=h.device), reps)]
+    for idx, w, rows, r in zip(ell.bucket_idx, ell.bucket_w, ell.bucket_rows,
+                               ell.bucket_real):
+        parts.append(_time_ms(lambda: scatter(idx, w, rows, h, out, r), reps))
+    del out
+    print(f"phase 2 {label}, whole layer's parts, each alone: zero fill "
+          f"{parts[0]:.4f} ms; scatter launches "
+          + ", ".join(f"K={i.shape[1]} {t:.4f} ms"
+                      for i, t in zip(ell.bucket_idx, parts[1:])))
+    print(f"phase 2 {label}, whole layer (bucketed_spmm, stream="
+          f"{stream}, {len(ell.bucket_idx)} scatter launches into one "
+          f"output, n={n}, nnz={nnz}): err={err:.3g} ms={c['ms']:.4f} "
+          f"plain_ms={c['plain_ms']:.4f} library_ms={c['library_ms']:.4f} "
+          f"(torch.sparse.mm, whole CSR) bound_ms={c['bound_ms']:.5f}"
+          + (f" streaming_ms={c['stream_ms']:.4f}" if resident else ""))
+    return c
+
+
 def _spmm_layer(label: str, ell, h, resident: bool = False,
                 reps: int = 25) -> dict:
-    """One layer's buckets through ``_spmm_case``; per-bucket lines and the
-    layer's sums."""
+    """One layer's buckets through ``_spmm_case`` (the per-bucket form):
+    per-bucket lines and their sums; then the whole layer through
+    ``_layer_case``, whose numbers it returns."""
     cases = []
     for idx, w, rows in zip(ell.bucket_idx, ell.bucket_w, ell.bucket_rows):
         c = _spmm_case(idx, w.to(h.dtype), h, rows, ell.num_rows, resident,
@@ -224,7 +308,7 @@ def _spmm_layer(label: str, ell, h, resident: bool = False,
           f"library_ms={total['library_ms']:.4f} "
           f"bound_ms={total['bound_ms']:.5f}"
           + (f" streaming_ms={total['stream_ms']:.4f}" if resident else ""))
-    return total
+    return _layer_case(label, ell, h, resident, reps)
 
 
 def _phase_kernels(graph, gateway) -> None:
@@ -365,7 +449,9 @@ def _phase_slice(graph, gateway) -> dict:
     exact_batches = len({r.batch_seq for r in responses})
     print(f"phase 3 launches: ell_spmm={spmm_n} lmc_compensate={comp_n} "
           f"over {exact_batches} exact batches + 1 ti batch")
-    assert spmm_n >= 9 * (exact_batches + 1), spmm_n
+    # a bucket with no real row launches nothing; every batch has real rows
+    # in at least one bucket per layer
+    assert spmm_n >= LAYERS * (exact_batches + 1), spmm_n
     assert comp_n >= 3 * exact_batches, comp_n
     lat = sorted(1e3 * r.latency_s for r in responses)
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
@@ -560,11 +646,13 @@ def _step_breakdown(tr, sampler) -> None:
     spmm = sum(v for k, v in by_name.items() if "ell_spmm" in k)
     comp = sum(v for k, v in by_name.items() if "compensate" in k)
     index_add = sum(v for k, v in by_name.items() if "indexFunc" in k)
+    fill = sum(v for k, v in by_name.items() if "Fill" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"phase 4 profiler, one train step: wall {wall_ms:.1f} ms, device "
           f"time {total:.1f} ms (busy share {total / wall_ms:.3f}); "
           f"ell_spmm kernels {spmm:.2f} ms, compensation kernels "
-          f"{comp:.2f} ms, index_add_ {index_add:.2f} ms; top: "
+          f"{comp:.2f} ms, index_add_ {index_add:.2f} ms, zero fills "
+          f"{fill:.2f} ms; top: "
           + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
 
 
@@ -642,15 +730,19 @@ def _phase_resident(graph, parts) -> dict:
     return counts
 
 
-KERNEL_FILES = {
+KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
-                 "src/repro/kernels/ell_spmm.py:97"),
+                 "src/repro/kernels/ell_spmm.py:97",
+                 ["ell_spmm_scatter", "ell_spmm"]),
     "ell_spmm_resident": ("src/repro_torch/csrc/ell_spmm.cu",
-                          "src/repro/kernels/ell_spmm.py:71"),
+                          "src/repro/kernels/ell_spmm.py:71",
+                          ["ell_spmm_resident_scatter", "ell_spmm_resident"]),
     "lmc_compensate": ("src/repro_torch/csrc/compensate.cu",
-                       "src/repro/kernels/compensate.py:54"),
+                       "src/repro/kernels/compensate.py:54",
+                       ["lmc_compensate_kernel"]),
     "lmc_compensate_resident": ("src/repro_torch/csrc/compensate.cu",
-                                "src/repro/kernels/compensate.py:40"),
+                                "src/repro/kernels/compensate.py:40",
+                                ["lmc_compensate_resident"]),
 }
 
 
@@ -701,8 +793,10 @@ def main() -> int:
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],
          "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
          "bound_ms": c["bound_ms"], "bound_by": "bytes",
-         "library_ms": c["library_ms"]}
+         "library_ms": c["library_ms"],
+         "entry_points": KERNEL_FILES[name][2]}
         for name, c in numbers.items()]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

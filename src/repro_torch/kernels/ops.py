@@ -1,9 +1,9 @@
 """Degree-bucketed ELL: host construction and the differentiable kernel wrappers.
 
 `bucketed_spmm` is the deployable aggregation: rows are degree-bucketed host
-side (powers of two) so ELL padding waste stays < 2x, each bucket runs one
-`ell_spmm` launch, and an `index_add_` sums every bucket's partial rows into
-an (n+1, D) buffer whose last row catches the padding rows and is dropped.
+side (powers of two) so ELL padding waste stays < 2x, and each bucket runs
+one launch of the SpMM kernel's scatter form, which adds the bucket's rows
+straight into one zeroed (n, D) output and skips the padding rows.
 
 `lmc_compensate` is the entry point of the fused gather+lerp compensation
 kernel (Eq. 9/12). Neither wrapper pads D or copies the store: the kernels
@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels.compensate import (lmc_compensate_kernel,
                                             lmc_compensate_resident)
-from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_resident
+from repro_torch.kernels.ell_spmm import (ell_spmm_resident_scatter,
+                                          ell_spmm_scatter)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,7 +54,11 @@ class ELLGraph:
 
     ``transpose`` (the bucketed Aᵀ, for the SpMM's backward pass) is an
     ELLGraph itself, built only on request (``with_transpose=True``): the
-    forward-only serving path never reads it. ``to(device)`` moves it along.
+    forward-only serving path never reads it. ``bucket_real`` holds each
+    bucket's real row count (Python ints; its rows past that are padding,
+    ``bucket_rows == num_rows``), so the kernels stop there; where it is
+    ``None`` they test every row. ``to(device)`` moves the tensors and the
+    transpose along and keeps the counts.
     """
     bucket_idx: tuple      # per bucket: (rows_b, K_b) int32 neighbor ids
     bucket_w: tuple        # per bucket: (rows_b, K_b) f32 weights
@@ -61,6 +66,7 @@ class ELLGraph:
     num_rows: int          # output rows
     num_cols: int          # gather-source rows, == h.shape[0]
     transpose: Optional["ELLGraph"] = None
+    bucket_real: Optional[tuple] = None   # per bucket: real rows (int)
 
     def to(self, device) -> "ELLGraph":
         """This graph (and its transpose) with every tensor on ``device``."""
@@ -69,18 +75,20 @@ class ELLGraph:
         return ELLGraph(mv(self.bucket_idx), mv(self.bucket_w),
                         mv(self.bucket_rows), self.num_rows, self.num_cols,
                         None if self.transpose is None
-                        else self.transpose.to(device))
+                        else self.transpose.to(device), self.bucket_real)
 
 
 # ------------------------------------------------------- host construction
 def _ell_buckets(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
                  buckets: Sequence[int], block_rows: int,
                  row_capacity: Optional[Sequence[int]], as_torch: bool = True):
-    """CSR -> per-bucket (idx, w, rows) arrays, fully vectorized.
+    """CSR -> per-bucket (idx, w, rows) arrays and real row counts, fully
+    vectorized.
 
     Reproduces the row order of the original per-node loop exactly: rows are
     emitted in (node, chunk) order; each chunk of ≤ kmax neighbors lands in
     the smallest bucket that fits it; deg-0 nodes emit one empty bucket-0 row.
+    Each bucket's padding rows (rid = n) follow its real rows.
     ``as_torch=False`` keeps the bucket arrays as numpy.
     """
     n = indptr.shape[0] - 1
@@ -97,10 +105,11 @@ def _ell_buckets(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
     chunk_len = np.clip(deg[row_node] - chunk_start, 0, kmax)
     bucket_of = np.searchsorted(np.asarray(buckets, np.int64), chunk_len)
 
-    b_idx, b_w, b_rows = [], [], []
+    b_idx, b_w, b_rows, b_real = [], [], [], []
     for b, k in enumerate(buckets):
         sel = np.flatnonzero(bucket_of == b)   # preserves (node, chunk) order
         rows = sel.shape[0]
+        b_real.append(int(rows))
         if row_capacity is not None:
             rows_pad = int(row_capacity[b])
             if rows > rows_pad:
@@ -125,7 +134,7 @@ def _ell_buckets(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
         b_idx.append(conv(idx))
         b_w.append(conv(w))
         b_rows.append(conv(rid))
-    return tuple(b_idx), tuple(b_w), tuple(b_rows)
+    return tuple(b_idx), tuple(b_w), tuple(b_rows), tuple(b_real)
 
 
 def _build_ell_loop(indptr, indices, weights, buckets=(8, 32, 128),
@@ -192,7 +201,7 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
     """CSR -> degree-bucketed ELL (bulk numpy, no per-node Python loop).
 
     Rows with deg > max(buckets) are split into multiple partial rows (their
-    partial sums add in the final ``index_add_``, keeping K bounded). When
+    partial sums add into one output row, keeping K bounded). When
     ``with_transpose`` the transposed adjacency is bucketed too.
     ``row_capacity`` (per-bucket padded row counts, applied to both
     directions) fixes the array shapes so every batch of a sampler has one
@@ -205,15 +214,17 @@ def build_ell(indptr: np.ndarray, indices: np.ndarray, weights: np.ndarray,
     n = indptr.shape[0] - 1
     num_cols = n if num_cols is None else int(num_cols)
 
-    idx, w, rows = _ell_buckets(indptr, indices, weights, buckets, block_rows,
-                                row_capacity, as_torch)
+    idx, w, rows, real = _ell_buckets(indptr, indices, weights, buckets,
+                                      block_rows, row_capacity, as_torch)
     t = None
     if with_transpose:
         t_ptr, t_ind, t_w = _transpose_csr(indptr, indices, weights, num_cols)
-        ti, tw, tr = _ell_buckets(t_ptr, t_ind, t_w, buckets, block_rows,
-                                  row_capacity, as_torch)
-        t = ELLGraph(ti, tw, tr, num_rows=num_cols, num_cols=n)
-    return ELLGraph(idx, w, rows, num_rows=n, num_cols=num_cols, transpose=t)
+        ti, tw, tr, t_real = _ell_buckets(t_ptr, t_ind, t_w, buckets,
+                                          block_rows, row_capacity, as_torch)
+        t = ELLGraph(ti, tw, tr, num_rows=num_cols, num_cols=n,
+                     bucket_real=t_real)
+    return ELLGraph(idx, w, rows, num_rows=n, num_cols=num_cols, transpose=t,
+                    bucket_real=real)
 
 
 def fixed_row_capacity(num_rows: int, num_edges: int, buckets=(8, 32, 128),
@@ -256,16 +267,20 @@ def ell_from_coo(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _spmm(bucket_idx, bucket_w, bucket_rows, num_rows: int, h: torch.Tensor,
+def _spmm(g: ELLGraph, bucket_w, h: torch.Tensor,
           stream: Optional[bool]) -> torch.Tensor:
-    """Σ over buckets of one kernel launch each, summed by ``index_add_``
-    into an (n+1, D) buffer whose row n catches the padding rows."""
-    spmm = ell_spmm_resident if stream is False else ell_spmm
+    """One scatter-form launch per bucket, each adding into one zeroed
+    (n, D) output; padding rows are skipped (on the CPU: the plain twin,
+    which drops them from its ``index_add_``)."""
+    spmm = ell_spmm_resident_scatter if stream is False else ell_spmm_scatter
     h = h.contiguous()
-    out = h.new_zeros((num_rows + 1, h.shape[1]))
-    for idx, w, rows in zip(bucket_idx, bucket_w, bucket_rows):
-        out.index_add_(0, rows, spmm(idx, w, h))
-    return out[:num_rows]
+    out = torch.zeros((g.num_rows, h.shape[1]), dtype=h.dtype,
+                      device=h.device)
+    real = g.bucket_real or (None,) * len(g.bucket_idx)
+    for idx, w, rows, r in zip(g.bucket_idx, bucket_w, g.bucket_rows, real,
+                               strict=True):
+        spmm(idx, w, rows, h, out, r)
+    return out
 
 
 class _BucketedSpMM(torch.autograd.Function):
@@ -274,8 +289,7 @@ class _BucketedSpMM(torch.autograd.Function):
 
     @staticmethod
     def forward(g, stream, h, *bucket_w):
-        return _spmm(g.bucket_idx, bucket_w, g.bucket_rows, g.num_rows, h,
-                     stream)
+        return _spmm(g, bucket_w, h, stream)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -296,8 +310,7 @@ class _BucketedSpMM(torch.autograd.Function):
                     "bucketed_spmm: gradient requested but the ELLGraph was "
                     "built with with_transpose=False; the SpMM's backward "
                     "needs the bucketed Aᵀ")
-            dh = _spmm(t.bucket_idx, t.bucket_w, t.bucket_rows, t.num_rows,
-                       ct, ctx.stream)
+            dh = _spmm(t, t.bucket_w, ct, ctx.stream)
         # dw[i,k] = ⟨ct[rows[i]], h[idx[i,k]]⟩; the zero row n of the padded
         # ct zeroes the all-padding rows (padding slots get ct·h[0], as in
         # the reference: never read back)
@@ -324,11 +337,12 @@ def bucketed_spmm(g: ELLGraph, h: torch.Tensor, *,
                   stream: Optional[bool] = None) -> torch.Tensor:
     """out = A h over all degree buckets: out[i] = Σ_{j in N(i)} w_ij h[j].
 
-    One ``ell_spmm`` launch per bucket (``stream=False``: the resident-source
-    kernel ``ell_spmm_resident``); partial rows (and split heavy rows)
-    combine with ``index_add_`` into an (n+1, D) buffer whose row n catches
-    the padding rows. On CUDA that ``index_add_`` uses atomics, so a row
-    split across buckets (degree > max bucket) sums in no fixed order.
+    One ``ell_spmm_scatter`` launch per bucket (``stream=False``: the
+    resident-source kernel, ``ell_spmm_resident_scatter``), each adding its
+    real rows into one zeroed (n, D) output; padding rows cost nothing. A
+    row split into several pieces (degree > max bucket) adds them with
+    atomics on CUDA, so it sums in no fixed order; every other row is exact
+    (0 + x).
 
     Differentiable (``torch.autograd`` and ``torch.func``): dh runs the same
     kernel over ``g.transpose`` with the same ``stream`` setting, so the

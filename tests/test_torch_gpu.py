@@ -7,10 +7,11 @@ only the port is installed:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 Tolerances: f32 rtol = atol = 1e-5 (the same f32 sums in another order;
-rows split across buckets combine through atomic ``index_add_`` in no fixed
-order, which the bound covers too); bf16 2e-2 compared in f32 (one bf16
-rounding of the output); the compensation is bit-equal to its twin. Matmuls
-in full f32: TF32 is off.
+rows split across pieces combine through atomics in no fixed order, which
+the bound covers too); bf16 2e-2 compared in f32 (one bf16 rounding of the
+output; the scatter form rounds a split row's merged pieces once where its
+twin rounds each); the compensation is bit-equal to its twin. Matmuls in
+full f32: TF32 is off.
 """
 import importlib
 
@@ -18,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (build_ell, bucketed_spmm, ell_spmm,
-                                 ell_spmm_resident, lmc_compensate_kernel,
+from repro_torch.kernels import (build_ell, bucketed_spmm, ell_from_coo,
+                                 ell_spmm, ell_spmm_resident,
+                                 ell_spmm_resident_scatter, ell_spmm_scatter,
+                                 lmc_compensate_kernel,
                                  lmc_compensate_resident)
 from repro_torch.kernels.compensate import lmc_compensate_plain
-from repro_torch.kernels.ell_spmm import ell_spmm_plain
+from repro_torch.kernels.ell_spmm import ell_spmm_plain, ell_spmm_scatter_plain
 from repro_torch.optim import tree_leaves, tree_map
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -109,6 +112,91 @@ def test_bucketed_spmm_on_gpu_matches_cpu(cuda):
     got = bucketed_spmm(g.to(cuda), h.to(cuda))
     assert SPMM_MOD.LAUNCHES == before + len(g.bucket_idx)
     torch.testing.assert_close(got.cpu(), bucketed_spmm(g, h), **F32)
+
+
+# ------------------------------------------------------ scatter form
+def _padded_row0_graph(seed, n=300, pad_edges=40_000):
+    """A PaddedSubgraph-like COO: real edges, heavy rows of degree 129, 260
+    and 300, and ``pad_edges`` zero-weight edges 0 -> 0, so row 0 holds
+    hundreds of all-zero K = 128 pieces (as at full width), with the
+    fixed-capacity buckets' padding rows at their tails."""
+    r = np.random.default_rng(seed)
+    deg = r.integers(0, 40, n)
+    deg[1:4] = (129, 260, 300)
+    dst = np.repeat(np.arange(n), deg)
+    src = r.integers(0, n, dst.shape[0])
+    w = r.random(dst.shape[0]).astype(np.float32)
+    src = np.concatenate([src, np.zeros(pad_edges, np.int64)])
+    dst = np.concatenate([dst, np.zeros(pad_edges, np.int64)])
+    w = np.concatenate([w, np.zeros(pad_edges, np.float32)])
+    return ell_from_coo(src, dst, w, n, with_transpose=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 130])
+@pytest.mark.parametrize("resident", [False, True], ids=["stream", "resident"])
+def test_ell_spmm_scatter_matches_plain(cuda, dtype, d, resident):
+    """Each bucket's scatter launch into one zeroed output against the plain
+    twin (per-bucket result, index_add_, padding rows dropped), with the real
+    row counts and without them (the kernel then tests every rid)."""
+    g = _padded_row0_graph(d)
+    gc = g.to(cuda)
+    h = torch.randn((g.num_cols, d), generator=torch.Generator(
+        device=cuda).manual_seed(d), device=cuda).to(dtype)
+    kernel = ell_spmm_resident_scatter if resident else ell_spmm_scatter
+    counter = "LAUNCHES_RESIDENT" if resident else "LAUNCHES"
+    # bf16 against the f32 twin: the kernel rounds a row's merged pieces
+    # once per run (rows of degree ≤ 300 span ≤ 2 runs) and adds in bf16,
+    # 3 roundings of 2^-9 at most, each relative to the row's largest sum
+    want = torch.zeros((g.num_rows, d), device=cuda)
+    for idx, w, rows in zip(gc.bucket_idx, gc.bucket_w, gc.bucket_rows):
+        ell_spmm_scatter_plain(idx, w, rows, h.float(), want)
+    scale = 1.0 + want.abs().amax(dim=1, keepdim=True)
+    for reals in (gc.bucket_real, (None,) * len(gc.bucket_real)):
+        got = torch.zeros((g.num_rows, d), dtype=dtype, device=cuda)
+        before = getattr(SPMM_MOD, counter)
+        for idx, w, rows, real in zip(gc.bucket_idx, gc.bucket_w,
+                                      gc.bucket_rows, reals):
+            assert kernel(idx, w.to(dtype), rows, h, got, real) is got
+        assert getattr(SPMM_MOD, counter) == before + len(gc.bucket_idx)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **F32)
+        else:
+            assert ((got.float() - want).abs() <= 6e-3 * scale).all()
+
+
+def test_scatter_resident_bit_equal_to_streaming(cuda):
+    """Per bucket and for the whole bucketed_spmm: the same fmaf chains,
+    the same runs, so the same bits (a heavy row spans at most two runs,
+    whose two atomic adds commute; row 0's other runs add zeros)."""
+    g = _padded_row0_graph(7).to(cuda)
+    h = torch.randn((g.num_cols, 256), device=cuda)
+    for idx, w, rows, real in zip(g.bucket_idx, g.bucket_w, g.bucket_rows,
+                                  g.bucket_real):
+        a = ell_spmm_scatter(idx, w, rows, h, torch.zeros_like(h), real)
+        b = ell_spmm_resident_scatter(idx, w, rows, h, torch.zeros_like(h),
+                                      real)
+        assert torch.equal(a, b)
+    assert torch.equal(bucketed_spmm(g, h, stream=False), bucketed_spmm(g, h))
+
+
+@pytest.mark.parametrize("poison", [float("nan"), float("inf")])
+@pytest.mark.parametrize("stream", [None, False], ids=["stream", "resident"])
+def test_zero_run_poison_matches_plain(cuda, poison, stream):
+    """A NaN (or inf: 0·inf = NaN) at h[0] under zero-weight runs poisons
+    exactly the rows the plain twin poisons: row 0 (its all-zero pieces)
+    and every real row with a padding slot (idx 0, w 0), no more, no
+    fewer."""
+    g = _padded_row0_graph(11)
+    h = torch.randn((g.num_cols, 256))
+    h[0] = poison
+    want = bucketed_spmm(g, h)          # CPU: the plain twins
+    got = bucketed_spmm(g.to(cuda), h.to(cuda), stream=stream).cpu()
+    bad_want, bad_got = ~torch.isfinite(want), ~torch.isfinite(got)
+    assert bad_want.any(dim=1)[0] and bad_want.any(dim=1).sum() > 1
+    assert torch.equal(bad_got, bad_want)
+    ok = ~bad_want
+    torch.testing.assert_close(got[ok], want[ok], **F32)
 
 
 # ------------------------------------------------- resident-source kernels
