@@ -16,15 +16,18 @@ which raises on failure:
      arxiv-like graph: ELL buckets (3840, 8), (3840, 32), (4608, 128) over
      h (3776, 256); compensation of 3648 halo rows from a (169343, 256)
      store), with kernel / plain / library times (CUDA events, median, cold
-     L2) and the least time the card could take (bytes over 3.35 TB/s);
+     L2) and the least time the card could take (bytes over 3.35 TB/s),
+     and the compensation's launch floor (the same kernel on 8 rows, and
+     a bare 1-element fill);
      Training shapes too: the streaming SpMM and compensation at the
      full-width training batch (32 parts, 4 clusters per batch on
      arxiv-like: buckets (191744, 8), (191744, 32), (216576, 128) over h
      (191616, 256); 169344 halo rows from the (169343, 256) store), and the
      resident-source kernels at the arxiv-cpu training batch (buckets
      (3072, 8), (3072, 32), (3328, 128) over h (2880, 256); 2304 halo rows
-     from a (4096, 256) store), each also bit-equal to the streaming kernel,
-     and a source past the shared-memory cap must raise. The SpMM kernels
+     from a (4096, 256) store), each also bit-equal to the streaming kernel
+     (the resident compensation also in every other layout, each timed), and
+     a source past the shared-memory cap must raise. The SpMM kernels
      run there in their per-bucket form, one line per bucket, and then as
      the main path runs them, one whole ``bucketed_spmm`` layer (a scatter
      launch per bucket into one output) against its plain twin, against
@@ -161,14 +164,21 @@ def _spmm_case(idx, w, h, rows, num_rows: int, resident: bool = False,
 
 
 def _comp_case(store, gids, fresh, mask, resident: bool = False,
-               reps: int = 25, label: str = "") -> dict:
+               reps: int = 25, label: str = "",
+               launch_floor: bool = False) -> dict:
     """Compensation kernel vs its plain twin (bit for bit in f32) at β = 0,
     random and 1, and timings. The bound counts the distinct store rows of
     the gids, β, mask, fresh and the whole output (masked rows must still be
-    written: 0·NaN stays NaN). ``resident`` times the resident-store kernel
-    and also holds it bit for bit against the streaming one."""
+    written: 0·NaN stays NaN). ``resident`` (f32 store) times the
+    resident-store kernel, holds it bit for bit against the streaming one,
+    and beside the wrapper's layout times every other row-share count P
+    from one share per column tile to one block per SM (P = SMs // C), each
+    bit-equal. ``launch_floor`` also times the kernel on the first 8 rows
+    alone, and a 1-element fill: what the timing reads for a bare launch."""
     import torch
-    from repro_torch.kernels.compensate import (lmc_compensate_kernel,
+    from repro_torch.kernels.build import resident_grid, slab_cols, smem_optin
+    from repro_torch.kernels.compensate import (_launch,
+                                                lmc_compensate_kernel,
                                                 lmc_compensate_plain,
                                                 lmc_compensate_resident)
     kernel = lmc_compensate_resident if resident else lmc_compensate_kernel
@@ -188,19 +198,40 @@ def _comp_case(store, gids, fresh, mask, resident: bool = False,
         err = max(err, float((out_k - out_p).abs().max()))
     uniq = int(torch.unique(gids).numel())
     nbytes = uniq * d * 4 + n * d * 4 + n * 12 + n * d * 4
-    c = {"err": err,
-         "ms": _time_ms(lambda: kernel(store, gids, beta_rand, fresh, mask),
-                        reps),
-         "plain_ms": _time_ms(lambda: lmc_compensate_plain(
-             store, gids, beta_rand, fresh, mask), reps),
+    args = (store, gids, beta_rand, fresh, mask)
+    c = {"err": err, "ms": _time_ms(lambda: kernel(*args), reps),
+         "plain_ms": _time_ms(lambda: lmc_compensate_plain(*args), reps),
          "bound_ms": _bound_ms(nbytes, 5.0 * n * d), "library_ms": None}
     if resident:
-        c["stream_ms"] = _time_ms(lambda: lmc_compensate_kernel(
-            store, gids, beta_rand, fresh, mask), reps)
+        c["stream_ms"] = _time_ms(lambda: lmc_compensate_kernel(*args), reps)
+        want = lmc_compensate_plain(*args)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        bd = slab_cols(store.shape[0], d, 4, smem_optin(0))
+        cols, shares, rows = resident_grid(n, d, bd, 4, sms)
+        others = []
+        for p in range(1, max(1, sms // cols) + 1):
+            r = -(-n // p)
+            assert torch.equal(_launch(*args, True, block_rows=r), want), p
+            ms = _time_ms(lambda: _launch(*args, True, block_rows=r), reps)
+            got = -(-n // r)   # no share left empty
+            others.append(f"P={got} ({cols * got} blocks of {r} rows) "
+                          f"{ms:.4f} ms")
+        print(f"phase 2 {label} layout: C={cols} column tiles of bd={bd}, "
+              f"P={shares} row shares of {rows} rows, {cols * shares} "
+              f"blocks; every P up to one block per SM: "
+              + ", ".join(others))
+    if launch_floor:
+        few = tuple(t[:8] for t in args[1:])
+        c["floor_ms"] = _time_ms(lambda: kernel(store, *few), reps)
+        one = torch.empty(1, device="cuda")
+        c["empty_ms"] = _time_ms(one.zero_, reps)
     print(f"phase 2 {label} N={n} store={tuple(store.shape)}: "
           f"err={err:.3g} ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
           f"bound_ms={c['bound_ms']:.5f} (no library call computes it)"
-          + (f" streaming_ms={c['stream_ms']:.4f}" if resident else ""))
+          + (f" streaming_ms={c['stream_ms']:.4f}" if resident else "")
+          + (f" launch_floor_ms={c['floor_ms']:.4f} (N=8, same store;"
+             f" a 1-element fill {c['empty_ms']:.4f})" if launch_floor
+             else ""))
     return c
 
 
@@ -329,7 +360,8 @@ def _phase_kernels(graph, gateway) -> None:
     store = torch.randn((graph.num_nodes, 256), generator=gen, device="cuda")
     fresh = torch.randn((sg.n_halo, 256), generator=gen, device="cuda")
     _comp_case(store, hb.halo_gids.to("cuda"), fresh,
-               hb.halo_mask.to("cuda"), label="serving lmc_compensate")
+               hb.halo_mask.to("cuda"), label="serving lmc_compensate",
+               launch_floor=True)
 
 
 def _train_batch(sampler):

@@ -120,6 +120,28 @@ def slab_cols(m: int, d: int, elt: int, smem_bytes: int) -> int:
     return min(cols, -(-d // vec) * vec)
 
 
+def resident_grid(n: int, d: int, bd: int, unit: int,
+                  sms: int) -> tuple[int, int, int]:
+    """Layout of the resident compensation kernel on a card of ``sms`` SMs:
+    ``(C, P, rows)``.
+
+    C = ceil(d / bd) column tiles, each split into P shares of ``rows``
+    contiguous rows, one block of 32 warps per (share, tile), so that each
+    block stages its (M, bd) slab exactly once. ``unit`` is the elements of
+    one slab vector (16 bytes of the store, or 1 element-wise): a warp
+    splits into lane groups of bd / unit lanes, one row each. P is at most
+    ``sms // C`` (about one block per SM) and at most what leaves each
+    block two passes of its lane groups, since every share stages the
+    column tile again; P is then cut to ceil(n / rows), so no share is
+    empty.
+    """
+    c = -(-d // bd)
+    groups = 32 * (32 // min(bd // unit, 32))   # rows of one block's pass
+    p = max(1, min(sms // c, n // (2 * groups)))
+    rows = -(-n // p)
+    return c, -(-n // rows), rows
+
+
 def load_kernel(name: str, symbol: str, argtypes: list):
     """The C function ``symbol`` of kernel ``name`` (built on first use)."""
     with _lock:

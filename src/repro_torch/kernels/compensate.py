@@ -6,11 +6,15 @@ cast to ``fresh``'s dtype and ``gid`` clipped into the store. On CUDA tensors
 it launches the hand-written Hopper kernel ``csrc/compensate.cu`` (which
 replaces the TPU kernel ``repro.kernels.compensate._comp_stream_kernel``) or
 raises; on CPU tensors it runs :func:`lmc_compensate_plain`. On f32 inputs the
-two agree bit for bit. ``lmc_compensate_resident`` is the same function on
-the resident-store kernel of the same file (which replaces
-``_comp_resident_kernel``, ``stream=False``): it stages column slabs of the
-whole store in shared memory, so it takes only small stores. ``LAUNCHES``
-and ``LAUNCHES_RESIDENT`` count kernel launches only.
+two agree bit for bit. The streaming kernel gives each row one warp, which
+issues every load of the row before its arithmetic.
+``lmc_compensate_resident`` is the same function on the resident-store kernel
+of the same file (which replaces ``_comp_resident_kernel``,
+``stream=False``): each block, at most about one per SM, stages one column
+slab of the whole store in shared memory once and computes a contiguous
+share of the rows from it (:func:`~repro_torch.kernels.build.resident_grid`),
+so it takes only small stores. ``LAUNCHES`` and ``LAUNCHES_RESIDENT`` count
+kernel launches only.
 """
 from __future__ import annotations
 
@@ -18,14 +22,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import load_kernel, slab_cols, smem_optin
+from repro_torch.kernels.build import (load_kernel, resident_grid, slab_cols,
+                                      smem_optin)
 
 LAUNCHES = 0
 LAUNCHES_RESIDENT = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES_RESIDENT = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+_ARGTYPES_RESIDENT = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p]
 
 
@@ -63,7 +68,11 @@ def _validate(store, gids, beta, fresh, mask) -> None:
         raise ValueError(f"lmc_compensate: no kernel for device {fresh.device}")
 
 
-def _launch(store, gids, beta, fresh, mask, resident: bool) -> torch.Tensor:
+def _launch(store, gids, beta, fresh, mask, resident: bool, *,
+            block_rows: int | None = None) -> torch.Tensor:
+    """Launch one kernel. ``block_rows`` overrides the resident layout's
+    rows per block (:func:`resident_grid`); ``chip_smoke.py`` times other
+    layouts through it."""
     if not all(t.is_contiguous() for t in (store, gids, beta, fresh, mask)):
         raise ValueError("lmc_compensate: all inputs must be contiguous")
     n, d = fresh.shape
@@ -77,8 +86,17 @@ def _launch(store, gids, beta, fresh, mask, resident: bool) -> torch.Tensor:
             fresh.data_ptr(), mask.data_ptr(), out.data_ptr(), n, m, d]
     if resident:
         elt = store.element_size()
-        vector = d % (16 // elt) == 0 and store.data_ptr() % 16 == 0
-        args.append(slab_cols(m, d, elt, smem_optin(fresh.device.index or 0)))
+        unit = 16 // elt   # elements of one 16-byte slab vector
+        vector = d % unit == 0 and store.data_ptr() % 16 == 0 and all(
+            t.data_ptr() % min(16, unit * t.element_size()) == 0
+            for t in (fresh, out))
+        bd = slab_cols(m, d, elt, smem_optin(fresh.device.index or 0))
+        if block_rows is None:
+            sms = torch.cuda.get_device_properties(
+                fresh.device).multi_processor_count
+            block_rows = resident_grid(n, d, bd, unit if vector else 1,
+                                       sms)[2]
+        args += [bd, block_rows]
         fn = load_kernel("compensate", "repro_lmc_compensate_resident",
                          _ARGTYPES_RESIDENT)
     else:

@@ -62,22 +62,51 @@ def test_ell_spmm_kernel_matches_plain(cuda, dtype, k, m, d):
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,m,d", [(3648, 169343, 256), (70, 123, 50)])
-def test_lmc_compensate_kernel_matches_plain(cuda, dtype, n, m, d):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    store = torch.randn((m, d), generator=g, device=cuda).to(dtype)
+# (store, fresh) dtypes: every combination the kernels take
+COMP_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+COMP_DTYPE_IDS = ["f32-f32", "bf16-bf16", "f32-bf16", "bf16-f32"]
+# N: one row, a ragged warp, the arxiv-cpu halo, the serving halo; D: each
+# compile-time vector count (1, 2, 4 vectors of 128 columns, and the loop
+# past 512) and the element-wise tail (D % 4 != 0)
+COMP_NS = (1, 7, 2304, 3648)
+COMP_DS = (50, 128, 130, 256, 520)
+
+
+def _comp_inputs(cuda, sdt, fdt, n, m, d, seed):
+    """Random inputs with out-of-range gids (clipped) and ~20% masked rows;
+    row 0 is masked and its store row is NaN: 0·NaN must stay NaN."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    store = torch.randn((m, d), generator=g, device=cuda)
     gids = torch.randint(-3, m + 3, (n,), generator=g, device=cuda,
-                         dtype=torch.int32)   # out of range -> clipped
+                         dtype=torch.int32)
     beta = torch.rand(n, generator=g, device=cuda)
     mask = (torch.rand(n, generator=g, device=cuda) > 0.2).float()
-    fresh = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    fresh = torch.randn((n, d), generator=g, device=cuda)
+    mask[0] = 0.0
+    store[int(gids[0].clamp(0, m - 1))] = float("nan")
+    return store.to(sdt), gids, beta, fresh.to(fdt), mask
+
+
+def _assert_bit_equal(got, want):
+    """Equal bit for bit where finite-or-inf; NaN at the same places (the
+    two may spell a bf16 NaN differently)."""
+    nan = want.isnan()
+    assert nan.any() and torch.equal(got.isnan(), nan)
+    ints = torch.int32 if want.dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+@pytest.mark.parametrize("sdt,fdt", COMP_DTYPES, ids=COMP_DTYPE_IDS)
+@pytest.mark.parametrize("n,m,d", [(3648, 169343, 256), (70, 123, 50)]
+                         + [(n, 5000, d) for n in COMP_NS for d in COMP_DS])
+def test_lmc_compensate_kernel_matches_plain(cuda, sdt, fdt, n, m, d):
+    args = _comp_inputs(cuda, sdt, fdt, n, m, d, n + d)
     before = COMP_MOD.LAUNCHES
-    got = lmc_compensate_kernel(store, gids, beta, fresh, mask)
+    got = lmc_compensate_kernel(*args)
     assert COMP_MOD.LAUNCHES == before + 1
     # same casts and operation order, no fused multiply-add: bit-equal
-    assert torch.equal(got, lmc_compensate_plain(store, gids, beta, fresh,
-                                                 mask))
+    _assert_bit_equal(got, lmc_compensate_plain(*args))
 
 
 def test_kernels_propagate_nan_through_padding(cuda):
@@ -221,24 +250,26 @@ def test_ell_spmm_resident_matches_plain_and_streaming(cuda, dtype, k, m, d):
                                ell_spmm_plain(idx, w, h).float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sdt,fdt", COMP_DTYPES, ids=COMP_DTYPE_IDS)
 @pytest.mark.parametrize("n,m,d", [(2304, 4096, 256), (70, 123, 50),
-                                   (300, 500, 130)])
-def test_lmc_compensate_resident_bit_equal(cuda, dtype, n, m, d):
-    g = torch.Generator(device=cuda).manual_seed(n + 1)
-    store = torch.randn((m, d), generator=g, device=cuda).to(dtype)
-    gids = torch.randint(-3, m + 3, (n,), generator=g, device=cuda,
-                         dtype=torch.int32)   # out of range -> clipped
-    beta = torch.rand(n, generator=g, device=cuda)
-    mask = (torch.rand(n, generator=g, device=cuda) > 0.2).float()
-    fresh = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+                                   (300, 500, 130)]
+                         + [(n, m, d) for m in (4096, 14000) for n in COMP_NS
+                            for d in COMP_DS])
+def test_lmc_compensate_resident_bit_equal(cuda, sdt, fdt, n, m, d):
+    """The wrapper's layout and two others (one row share per column tile;
+    shares of 7 rows, many blocks, most of them one pass) against the
+    streaming kernel and the plain twin, bit for bit. M = 14,000 leaves a
+    4-column slab (f32): 64 column tiles, 1-lane groups."""
+    args = _comp_inputs(cuda, sdt, fdt, n, m, d, n + d + 1)
+    want = lmc_compensate_plain(*args)
     before = COMP_MOD.LAUNCHES_RESIDENT
-    got = lmc_compensate_resident(store, gids, beta, fresh, mask)
+    got = lmc_compensate_resident(*args)
     assert COMP_MOD.LAUNCHES_RESIDENT == before + 1
-    assert torch.equal(got, lmc_compensate_kernel(store, gids, beta, fresh,
-                                                  mask))
-    assert torch.equal(got, lmc_compensate_plain(store, gids, beta, fresh,
-                                                 mask))
+    _assert_bit_equal(got, lmc_compensate_kernel(*args))
+    _assert_bit_equal(got, want)
+    for rows in (n, 7):
+        _assert_bit_equal(COMP_MOD._launch(*args, True, block_rows=rows),
+                          want)
 
 
 def test_resident_kernels_refuse_a_source_past_the_cap(cuda):
