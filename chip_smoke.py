@@ -46,11 +46,31 @@ which raises on failure:
      backward) per step; prints host sample+build ms and step ms per step;
   5. resident — the same trainer on arxiv-cpu with stream=False for 6 steps
      on the resident-source kernels only; its losses must equal a
-     stream=True run from the same seed within 1e-6 relative.
+     stream=True run from the same seed within 1e-6 relative;
+  6. supervised — the supervised trainer at phase 4's full width, with the
+     async pipeline (depth 2, 2 workers: pinned host batches, the copy on a
+     side stream), checkpoints every 2 steps in a temporary directory and
+     the health guard (store sweep every 2 steps, the standard rho budget),
+     no straggler rule. 6a: 8 steps with background checkpoint writes; the
+     newest must verify; prints bytes per checkpoint, each save's hot-path
+     snapshot and background crc32 + np.save times, the restore time, the
+     check_store time, the pinned-memory peak, each slot's side-stream copy
+     against phase 4's pageable copy, and the step time and host share
+     against phase 4's. 6b: the same with synchronous checkpoints under a
+     pipeline-worker crash (slot 3), a checkpoint-write failure (step 4) and
+     a preemption (step 5): each recorded once, the preemption restored from
+     step 2, no tmp dir left, losses equal to 6a's within rtol 1e-4. 6c:
+     GraphSAGE 3x256 on ell at arxiv-cpu, a NaN batch at step 5 rolled back
+     (non-finite) and the losses of an uninterrupted run within 1e-4. 6d:
+     examples/train_gnn_torch.py for 100 steps, then 150 from its
+     checkpoint, which must resume at step 100. Every step that runs, a
+     replay or a rejected one included, must launch 27 SpMM and 5
+     compensation kernels.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
-shapes, the SpMM ones as a whole layer, launches summed over phases 3-5,
+shapes, the SpMM ones as a whole layer, launches summed over phases 3-6
+(6d's CLI runs in processes of their own and is not counted),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -59,6 +79,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -622,11 +643,12 @@ def _check_ell_matches_segment(gnn, graph, sampler) -> None:
           f"{len(seg)} grad leaves and the h/v rows {worst:.3g} (<= 2e-4)")
 
 
-def _step_breakdown(tr, sampler) -> None:
+def _step_breakdown(tr, sampler) -> float:
     """Where a full-width step's time goes, on one more batch (slot 1 of the
     schedule, outside the counted run): the host build, the batch copy to
     the card, the train step and the optimizer, each synchronised; then one
-    step under torch.profiler for the device time by kernel."""
+    step under torch.profiler for the device time by kernel. Returns the
+    batch copy's ms (pageable memory, the synchronous trainer's copy)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import host_batch
@@ -673,7 +695,7 @@ def _step_breakdown(tr, sampler) -> None:
     if not by_name:
         print("phase 4 profiler: no device time recorded (device busy "
               "share not measured)")
-        return
+        return copy_ms
     total = sum(by_name.values())
     spmm = sum(v for k, v in by_name.items() if "ell_spmm" in k)
     comp = sum(v for k, v in by_name.items() if "compensate" in k)
@@ -686,10 +708,13 @@ def _step_breakdown(tr, sampler) -> None:
           f"{comp:.2f} ms, index_add_ {index_add:.2f} ms, zero fills "
           f"{fill:.2f} ms; top: "
           + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    return copy_ms
 
 
-def _phase_train(graph, sampler) -> dict:
-    """LMC training at full width on the streaming kernels."""
+def _phase_train(graph, sampler) -> tuple:
+    """LMC training at full width on the streaming kernels. Returns the
+    launch counts and, for phase 6, the step and host-share medians and the
+    pageable batch copy's ms."""
     import math
     from repro_torch.core import LMC
     from repro_torch.optim import sgd
@@ -724,8 +749,17 @@ def _phase_train(graph, sampler) -> dict:
     print(f"phase 4 host share of a step (device idle while the host samples "
           f"and builds; a ratio of timings, steps 2-{N_TRAIN_STEPS}): "
           f"{statistics.median(host):.3f}")
-    _step_breakdown(tr, sampler)
-    return counts
+    copy_ms = _step_breakdown(tr, sampler)
+    return counts, {**_mean_step(tr.history[1:]), "copy_ms": copy_ms}
+
+
+def _mean_step(recs) -> dict:
+    """Mean step ms and the share of all step time spent obtaining batches
+    (sums over the steps: a pipeline's steps alternate between waiting and
+    not, so a median would hide the wait)."""
+    total = sum(r["time_s"] for r in recs)
+    return {"step_ms": 1e3 * total / len(recs),
+            "host_share": sum(r["host_s"] for r in recs) / total}
 
 
 def _phase_resident(graph, parts) -> dict:
@@ -760,6 +794,232 @@ def _phase_resident(graph, parts) -> dict:
     print("phase 5 resident losses equal the streaming run's within 1e-6 "
           "relative")
     return counts
+
+
+def _losses(tr) -> dict:
+    """step -> loss, the last record per step (a replay overwrites)."""
+    return {r["step"]: r["loss"] for r in tr.history if "loss" in r}
+
+
+def _events(tr, kind: str) -> list:
+    return [r for r in tr.history if r.get("event") == kind]
+
+
+def _assert_launches(label: str, tr, counts: dict) -> int:
+    """27 SpMM and 5 compensation launches per executed step: every step
+    with a loss record, a replay included, and every step rejected by the
+    health gate after it ran."""
+    executed = (sum("loss" in r for r in tr.history)
+                + len(_events(tr, "health-rollback"))
+                + len(_events(tr, "health-skip-batch")))
+    spmm, comp = _per_step_launches()
+    print(f"phase 6{label} launches over {executed} executed steps: {counts}")
+    assert counts == {"ell_spmm": spmm * executed, "ell_spmm_resident": 0,
+                      "lmc_compensate": comp * executed,
+                      "lmc_compensate_resident": 0}, (counts, executed)
+    return executed
+
+
+def _supervised(graph, sampler, ckpt_dir, **kw):
+    """The supervised trainer of phase 6 at full width (phase 4's model and
+    data): LMC on ell, the pipeline (depth 2, 2 workers), checkpoints every
+    2 steps, the health guard with a store sweep every 2 steps and the
+    standard rho budget; no straggler rule, so the stream is a function of
+    the step alone."""
+    from repro_torch.core import LMC, RHO_BUDGET_DEFAULT
+    from repro_torch.optim import sgd
+    from repro_torch.train import GNNTrainer, HealthConfig
+    return GNNTrainer(
+        _gcn(graph), LMC, graph, sampler, sgd(lr=0.2), backend="ell",
+        prefetch=2, pipeline_workers=2, ckpt_dir=str(ckpt_dir), ckpt_every=2,
+        health=HealthConfig(store_check_every=2,
+                            rho_budget=RHO_BUDGET_DEFAULT),
+        straggler_deadline=float("inf"), device="cuda", **kw)
+
+
+def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
+    """Phase 6: the supervised training tier on the card. 6a runs the
+    pipelined, health-guarded trainer with async checkpoints at full width;
+    6b the same under a pipeline crash, a checkpoint-write failure and a
+    preemption, against 6a's losses; 6c a NaN batch rolled back on
+    GraphSAGE at arxiv-cpu; 6d the training CLI and its resume."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.graph import ClusterSampler
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import FaultPlan
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    launches: dict = {}
+    try:
+        print(f"phase 6 checkpoint directory {root}: "
+              f"{shutil.disk_usage(root).free / 2**30:.1f} GiB free")
+
+        def sampler():   # phase 4's: partition seed 0, sampler seed 1
+            return ClusterSampler(graph, PARTS, CLUSTERS, parts=parts, seed=1)
+
+        # ---- 6a: uninterrupted, async checkpoints
+        tr = _supervised(graph, sampler(), root / "a", async_ckpt=True)
+        _zero_counts()
+        tr.run(8)
+        counts = _read_counts()
+        pipe = tr._pipeline
+        torch.cuda.synchronize()
+        copy_ms = [s.elapsed_time(e) for s, e in pipe.copy_events]
+        pinned = pipe.pinned_peak_bytes
+        nbytes = sum(t.nbytes for t in tree_leaves(tr._state_tree()))
+        tr.close()
+        _assert_launches("a", tr, counts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        base = _losses(tr)
+        assert sorted(base) == list(range(1, 9)), base
+        assert all(np.isfinite(list(base.values()))), base
+        newest = tr.ckpt.latest_step()
+        assert newest == 8 and tr.ckpt.verify(8), tr.ckpt.all_steps()
+        saves = list(tr.ckpt.times)
+        assert [t["step"] for t in saves] == [2, 4, 6, 8], saves
+        for r in tr.history:
+            if "loss" in r:
+                print(f"phase 6a step {r['step']}: loss={r['loss']:.6f} "
+                      f"batch_wait_ms={1e3 * r['host_s']:.1f} "
+                      f"total_ms={1e3 * r['time_s']:.1f} halo_staleness="
+                      f"{r['halo_staleness']}")
+        mean = _mean_step([r for r in tr.history if "loss" in r][1:])
+        print(f"phase 6a step: mean {mean['step_ms']:.1f} ms, host share "
+              f"(time waiting for the batch over all step time) "
+              f"{mean['host_share']:.3f}, steps 2-8; phase 4, synchronous, "
+              f"steps 2-{N_TRAIN_STEPS}: mean {phase4['step_ms']:.1f} ms, "
+              f"host share {phase4['host_share']:.3f}; rho-budget "
+              f"violations recorded "
+              f"{sum('staleness_violation' in r for r in tr.history)}")
+        print(f"phase 6a checkpoint: {nbytes} bytes per save "
+              f"({nbytes / 2**30:.3f} GiB); hot-path snapshot ms per save "
+              + ", ".join(f"step {t['step']} {1e3 * t['snapshot']:.1f}"
+                          for t in saves)
+              + "; background write s per save (crc32 + np.save) "
+              + ", ".join(f"step {t['step']} {t['crc32']:.2f} + "
+                          f"{t['np_save']:.2f}" for t in saves)
+              + f"; step 8 verifies")
+        stats = getattr(torch.cuda, "host_memory_stats", None)
+        pinned_alloc = (stats().get("allocated_bytes.peak", "not reported")
+                        if stats else "not available in this torch")
+        print(f"phase 6a pipeline: pinned host bytes peak {pinned} "
+              f"({pinned / 2**30:.2f} GiB, the pipeline's count of pinned "
+              f"batches alive; the pinned allocator's peak "
+              f"{pinned_alloc}); batch copy to the card on the side "
+              f"stream, ms per slot: "
+              + ", ".join(f"{m:.1f}" for m in copy_ms)
+              + f" (phase 4, pageable and synchronous: "
+              f"{phase4['copy_ms']:.1f} ms)")
+        t0 = time.perf_counter()
+        assert tr.restore() and tr.step_num == 8
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            assert tr.guard.check_store(tr.store) is None
+            check.append(1e3 * (time.perf_counter() - t0))
+        print(f"phase 6a restore of step 8 (load, crc32, to the card): "
+              f"{restore_s:.2f} s; check_store (the whole store, one "
+              f"reduction and one sync) median {statistics.median(check):.2f}"
+              f" ms")
+        del tr
+        shutil.rmtree(root / "a")
+
+        # ---- 6b: the fault matrix, synchronous checkpoints
+        plan = FaultPlan(pipeline_at=(3,), ckpt_write_at=(4,),
+                         preempt_at=(5,))
+        tr = _supervised(graph, sampler(), root / "b",
+                         failure_injector=plan)
+        _zero_counts()
+        tr.run(8)
+        counts = _read_counts()
+        tr.close()
+        _assert_launches("b", tr, counts)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        evs = [(r["step"], r["event"]) for r in tr.history if "event" in r]
+        print(f"phase 6b events: {evs}")
+        assert len(_events(tr, "pipeline-fault")) == 1, evs
+        assert len(_events(tr, "ckpt-write-failed")) == 1, evs
+        pre = _events(tr, "preemption")
+        assert len(pre) == 1 and pre[0]["restored"] and pre[0]["step"] == 2, \
+            pre
+        assert not list((root / "b").glob("*.tmp.*"))
+        got = _losses(tr)
+        assert sorted(got) == sorted(base), got
+        np.testing.assert_allclose([got[k] for k in sorted(got)],
+                                   [base[k] for k in sorted(base)],
+                                   rtol=1e-4, atol=0)
+        print(f"phase 6b losses match 6a's within rtol 1e-4 (max rel "
+              f"{max(abs(got[k] - base[k]) / abs(base[k]) for k in base):.3g})"
+              f"; no tmp dir left; checkpoints {tr.ckpt.all_steps()}")
+        del tr
+        shutil.rmtree(root / "b")
+
+        # ---- 6c: NaN batch -> rollback, GraphSAGE on ell at arxiv-cpu
+        runs = {}
+        for name, plan in (("clean", None),
+                           ("nan", FaultPlan(nan_batch_at=(5,)))):
+            from repro_torch.core import LMC
+            from repro_torch.models import make_gnn
+            from repro_torch.optim import sgd
+            from repro_torch.train import GNNTrainer, HealthConfig
+            gnn = make_gnn("sage", small.feature_dim, HIDDEN,
+                           small.num_classes, LAYERS,
+                           generator=torch.Generator().manual_seed(0))
+            tr = GNNTrainer(
+                gnn, LMC, small, ClusterSampler(small, PARTS, CLUSTERS,
+                                                parts=small_parts, seed=1),
+                sgd(lr=0.2), backend="ell", ckpt_dir=str(root / name),
+                ckpt_every=2, health=HealthConfig(), failure_injector=plan,
+                straggler_deadline=float("inf"), device="cuda")
+            _zero_counts()
+            tr.run(10)
+            counts = _read_counts()
+            tr.close()
+            _assert_launches(f"c {name}", tr, counts)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            runs[name] = tr
+        rb = _events(runs["nan"], "health-rollback")
+        assert len(rb) == 1 and "non-finite" in rb[0]["reason"], rb
+        assert len(_events(runs["clean"], "health-rollback")) == 0
+        got, want = _losses(runs["nan"]), _losses(runs["clean"])
+        assert sorted(got) == sorted(want) == list(range(1, 11)), got
+        np.testing.assert_allclose([got[k] for k in sorted(got)],
+                                   [want[k] for k in sorted(want)],
+                                   rtol=1e-4, atol=0)
+        print(f"phase 6c GraphSAGE on ell: {rb[0]['reason']} at step 5, "
+              f"rolled back to step {rb[0]['step']}; losses match the "
+              f"uninterrupted run within rtol 1e-4")
+        del runs
+
+        # ---- 6d: the training CLI, then its resume
+        cli = Path(__file__).resolve().parent / "examples/train_gnn_torch.py"
+        env = {**os.environ, "PYTHONPATH": str(cli.parent.parent / "src")}
+        outs = []
+        for n in (100, 150):
+            t0 = time.time()
+            res = subprocess.run(
+                [sys.executable, str(cli), "--preset", "arxiv-cpu",
+                 "--backend", "ell", "--health", "--async-ckpt", "--steps",
+                 str(n), "--ckpt-dir", str(root / "cli")],
+                capture_output=True, text=True, env=env, timeout=600)
+            assert res.returncode == 0, res.stdout + res.stderr
+            outs.append(res.stdout)
+            print(f"phase 6d train_gnn_torch.py --steps {n}: "
+                  f"{time.time() - t0:.1f} s; last line: "
+                  f"{res.stdout.strip().splitlines()[-1]}")
+        assert "resumed" not in outs[0], outs[0]
+        assert "resumed from checkpoint at step 100" in outs[1], outs[1]
+        print("phase 6d the second run resumed from checkpoint at step 100")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
@@ -816,8 +1076,10 @@ def main() -> int:
         sampler, ClusterSampler(small, PARTS, CLUSTERS, parts=small_parts,
                                 seed=1))
     launches = _phase_slice(graph, gateway)
-    for counts in (_phase_train(graph, sampler),
-                   _phase_resident(small, small_parts)):
+    train_counts, phase4 = _phase_train(graph, sampler)
+    for counts in (train_counts, _phase_resident(small, small_parts),
+                   _phase_supervised(graph, sampler.parts, small,
+                                     small_parts, phase4)):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     kernels = [

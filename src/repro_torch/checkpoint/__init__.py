@@ -1,4 +1,5 @@
-"""Checkpoint integrity helpers (the checkpoint manager comes with training)."""
-from repro_torch.checkpoint.manager import crc32_array
+"""Verifiable checkpoints in the reference's format 2, and the crc32 idiom."""
+from repro_torch.checkpoint.manager import (CheckpointError, CheckpointManager,
+                                            crc32_array)
 
-__all__ = ["crc32_array"]
+__all__ = ["CheckpointError", "CheckpointManager", "crc32_array"]

@@ -62,9 +62,21 @@ class Batch(NamedTuple):
     ell: Optional[ELLGraph] = None
     ti_scale: Optional[torch.Tensor] = None
 
-    def to(self, device) -> "Batch":
-        """This batch with every tensor (and the ELL graph) on ``device``."""
-        return Batch(*(None if f is None else f.to(device) for f in self))
+    def to(self, device, non_blocking: bool = False) -> "Batch":
+        """This batch with every tensor (and the ELL graph) on ``device``;
+        ``non_blocking`` makes the copies asynchronous from pinned memory."""
+        return Batch(*(None if f is None
+                       else f.to(device, non_blocking=non_blocking)
+                       for f in self))
+
+    def pin_memory(self) -> "Batch":
+        """This (CPU) batch copied into page-locked host memory."""
+        return Batch(*(None if f is None else f.pin_memory() for f in self))
+
+    def tensors(self) -> list:
+        """Every tensor of the batch, the ELL graph's included."""
+        return [t for f in self if f is not None
+                for t in (f.tensors() if isinstance(f, ELLGraph) else [f])]
 
 
 def host_batch(sg: PaddedSubgraph, *, backend: str = "segment",

@@ -68,14 +68,28 @@ class ELLGraph:
     transpose: Optional["ELLGraph"] = None
     bucket_real: Optional[tuple] = None   # per bucket: real rows (int)
 
-    def to(self, device) -> "ELLGraph":
+    def to(self, device, non_blocking: bool = False) -> "ELLGraph":
         """This graph (and its transpose) with every tensor on ``device``."""
+        return self._map(lambda t: torch.as_tensor(t).to(
+            device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "ELLGraph":
+        """This (CPU) graph copied into page-locked host memory."""
+        return self._map(lambda t: torch.as_tensor(t).pin_memory())
+
+    def tensors(self) -> list:
+        """Every bucket array, the transpose's included."""
+        own = [*self.bucket_idx, *self.bucket_w, *self.bucket_rows]
+        return own + ([] if self.transpose is None
+                      else self.transpose.tensors())
+
+    def _map(self, fn) -> "ELLGraph":
         def mv(ts):
-            return tuple(torch.as_tensor(t).to(device) for t in ts)
+            return tuple(fn(t) for t in ts)
         return ELLGraph(mv(self.bucket_idx), mv(self.bucket_w),
                         mv(self.bucket_rows), self.num_rows, self.num_cols,
                         None if self.transpose is None
-                        else self.transpose.to(device), self.bucket_real)
+                        else self.transpose._map(fn), self.bucket_real)
 
 
 # ------------------------------------------------------- host construction

@@ -31,12 +31,13 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def tree_leaves(tree) -> list:
-    """The leaves in the reference's order (dict keys sorted)."""
+    """The leaves in the reference's order (dict keys sorted, lists and
+    tuples in order); ``None`` is an empty subtree, as in JAX."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def global_norm_clip(grads, max_norm: float):

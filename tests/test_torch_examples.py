@@ -1,0 +1,51 @@
+"""The port's CLIs (``examples/*_torch.py``) end to end in a fresh
+interpreter on the CPU: exit 0, their headline lines, and a resume from the
+first run's checkpoint."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _run(script, *args, timeout=300):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src") + os.pathsep + \
+        env.get("PYTHONPATH", "")
+    res = subprocess.run(
+        [sys.executable, str(REPO / "examples" / script), *args],
+        capture_output=True, text=True, timeout=timeout, env=env)
+    assert res.returncode == 0, \
+        f"{script} exited {res.returncode}:\n{res.stdout}\n{res.stderr}"
+    return res.stdout
+
+
+def test_quickstart_torch_smoke():
+    out = _run("quickstart_torch.py", "--device", "cpu", "--preset",
+               "ppi-cpu", "--steps", "50")
+    assert "=== lmc ===" in out and "=== cluster ===" in out
+    assert out.count("final test acc:") == 3
+
+
+def test_train_gnn_torch_resumes(tmp_path):
+    args = ["--device", "cpu", "--preset", "ppi-cpu", "--backend", "ell",
+            "--health", "--async-ckpt", "--ckpt-dir", str(tmp_path)]
+    first = _run("train_gnn_torch.py", *args, "--steps", "40")
+    assert "resumed" not in first and "step    40" in first
+    assert "done: test acc" in first
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_0000000040"]
+    second = _run("train_gnn_torch.py", *args, "--steps", "60")
+    assert "resumed from checkpoint at step 40" in second
+    assert "step    60" in second and "done: test acc" in second
+    assert not list(tmp_path.glob("*.tmp.*"))
+
+
+def test_train_gnn_torch_rejects_recycle_without_pipeline(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    res = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "train_gnn_torch.py"),
+         "--device", "cpu", "--no-prefetch", "--recycle", "2",
+         "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode == 2 and "--no-prefetch is incompatible" in res.stderr

@@ -348,3 +348,54 @@ def test_train_step_on_gpu_matches_cpu(cuda, stream):
     torch.testing.assert_close(sg_.h.cpu(), sc.h, rtol=2e-4, atol=1e-6)
     torch.testing.assert_close(sg_.v.cpu(), sc.v, rtol=2e-4, atol=1e-6)
 
+
+
+def test_async_checkpoint_of_a_cuda_store_survives_later_writes(cuda,
+                                                                tmp_path):
+    """A background save snapshots the store to the host before it returns:
+    writing the store right after (as the next step's commit does) changes
+    nothing in the checkpoint, which verifies and restores the old values."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import init_history
+    store = init_history(3, 50_000, 256, device=cuda)
+    store.h.normal_(generator=torch.Generator(device=cuda).manual_seed(0))
+    want = store.h.cpu()
+    cm = CheckpointManager(tmp_path)
+    cm.save(1, {"store": (store.h, store.v)}, {}, background=True)
+    store.h.fill_(float("nan"))
+    store.v.fill_(1.0)
+    cm.close()
+    assert cm.verify(1)
+    tree, _, step = cm.restore({"store": (store.h, store.v)})
+    assert step == 1
+    assert torch.equal(torch.from_numpy(tree["store"][0]), want)
+    assert not tree["store"][1].any()
+    assert set(cm.times[-1]) == {"step", "snapshot", "crc32", "np_save"}
+
+
+@pytest.mark.parametrize("backend", ["segment", "ell"])
+def test_pipeline_batch_staged_on_side_stream_equals_sync(cuda, backend):
+    """Pinned host batches copied on the side stream (depth 2) equal the
+    synchronous copies (depth 0), slot for slot; the compute stream waited
+    for each copy, and the pinned bytes were counted."""
+    from repro_torch.data import SubgraphPipeline
+    from repro_torch.graph import ClusterSampler, make_sbm_dataset
+    graph = make_sbm_dataset("ppi-cpu", seed=3)
+
+    def stream(depth):
+        sampler = ClusterSampler(graph, 8, 2, seed=0)
+        with SubgraphPipeline(sampler, backend=backend, depth=depth,
+                              workers=2, num_steps=5, device=cuda) as pipe:
+            out = [[t.clone() for t in b.tensors()] for b in pipe]
+            assert pipe.host.batch_gids.is_pinned() == (depth > 0)
+            return out, pipe.pinned_peak_bytes, list(pipe.copy_events)
+
+    sync, sync_pinned, sync_events = stream(0)
+    staged, pinned, events = stream(2)
+    assert sync_pinned == 0 and not sync_events
+    assert pinned > 0 and len(events) == 5
+    torch.cuda.synchronize()
+    assert all(s.elapsed_time(e) >= 0 for s, e in events)
+    assert len(sync) == len(staged) == 5
+    for a, b in zip(sync, staged):
+        assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``
-or ``chip_smoke.py``, and its entry points never drop to the CPU unasked."""
+"""The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
+``chip_smoke.py`` or the port's CLIs (``examples/*_torch.py``), and its entry
+points never drop to the CPU unasked."""
 import ast
 import os
 import subprocess
@@ -13,6 +14,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 CHIP_SMOKE = REPO / "chip_smoke.py"
+PORT_CLIS = sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: Path) -> list:
@@ -30,7 +32,8 @@ def _forbidden(mod: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE],
+@pytest.mark.parametrize("path",
+                         sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + PORT_CLIS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -40,7 +43,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.train, repro_torch.optim, repro_torch.graph.sampler, "
-            "repro_torch.graph.partition; "
+            "repro_torch.graph.partition, repro_torch.data, "
+            "repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -50,16 +54,17 @@ def test_import_leaves_jax_and_reference_unloaded():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
+def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch, tmp_path):
     """device=None means the card; without CUDA it raises instead of
     silently running on the CPU."""
     from repro_torch.convert import state_from_reference
     from repro_torch.core import LMC, from_graph, init_history, to_device_batch
+    from repro_torch.data import SubgraphPipeline
     from repro_torch.graph import ClusterSampler, make_sbm_dataset
     from repro_torch.models import make_gnn
     from repro_torch.optim import sgd
     from repro_torch.serve import GNNServer, warm_store
-    from repro_torch.train import GNNTrainer
+    from repro_torch.train import GNNTrainer, HealthConfig
 
     g = make_sbm_dataset("ppi-cpu", seed=3)
     gnn = make_gnn("gcn", g.feature_dim, 16, g.num_classes, 2)
@@ -76,6 +81,14 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
     sampler = ClusterSampler(g, 4, 1, parts=np.arange(g.num_nodes) % 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GNNTrainer(gnn, LMC, g, sampler, sgd())
+    for kw in (dict(ckpt_dir=str(tmp_path), async_ckpt=True),
+               dict(health=HealthConfig()), dict(prefetch=2),
+               dict(recycle=2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            GNNTrainer(gnn, LMC, g, sampler, sgd(), **kw)
+    for depth in (0, 2):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SubgraphPipeline(sampler, depth=depth)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         to_device_batch(sampler.sample(), backend="ell")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -93,3 +106,21 @@ def test_chip_smoke_fails_alone_and_without_cuda(tmp_path):
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("cli", PORT_CLIS, ids=lambda p: p.name)
+def test_port_clis_refuse_to_run_on_cpu_unasked(cli, tmp_path):
+    """Without ``--device`` a port CLI means the card: with none visible it
+    fails, naming the way to the CPU, and trains nothing."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, str(cli), "--preset", "ppi-cpu",
+                          "--steps", "50", "--ckpt-dir", str(tmp_path)]
+                         if "train" in cli.name else
+                         [sys.executable, str(cli), "--preset", "ppi-cpu",
+                          "--steps", "50"],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr
+    assert "device='cpu'" in res.stderr
+    assert not list(tmp_path.iterdir())

@@ -242,17 +242,39 @@ def test_trainer_matches_reference_trainer(graphs, backend):
                                np.asarray(jt.store.h), **TOL)
 
 
-def test_trainer_refuses_unported_options(graphs):
+def test_trainer_refuses_unported_options(graphs, tmp_path):
+    """Every option of the reference trainer is ported and takes effect,
+    except ``seed``, whose role the GNN's own parameters take: that one is
+    refused."""
+    import inspect
+    from repro_torch.train import FaultPlan, HealthConfig
     _, tgr, parts = graphs
+    ref = set(inspect.signature(JTrainer.__init__).parameters)
+    ours = set(inspect.signature(GNNTrainer.__init__).parameters)
+    assert ref - ours == {"seed"} and ours - ref == {"device"}
     tg = make_gnn("gcn", tgr.feature_dim, 8, tgr.num_classes, 2)
-    s = tgraph.ClusterSampler(tgr, PARTS, 1, parts=parts, seed=1)
-    for kw, item in ((dict(ckpt_dir="ckpt"), "item 2"),
-                     (dict(health=object()), "item 1"),
-                     (dict(failure_injector=object()), "item 1"),
-                     (dict(prefetch=2), "item 4"),
-                     (dict(recycle=2), "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            GNNTrainer(tg, METHODS["lmc"], tgr, s, sgd(), device="cpu", **kw)
+
+    def trainer(**kw):
+        return GNNTrainer(tg, METHODS["lmc"], tgr, tgraph.ClusterSampler(
+            tgr, PARTS, 1, parts=parts, seed=1), sgd(), device="cpu",
+            straggler_deadline=float("inf"), **kw)
+
+    with pytest.raises(TypeError, match="seed"):
+        trainer(seed=0)
+    tr = trainer(ckpt_dir=str(tmp_path), ckpt_every=2, async_ckpt=True,
+                 health=HealthConfig(), max_retries=2, prefetch=2, recycle=2,
+                 pipeline_workers=1, pipeline_mode="epoch",
+                 failure_injector=FaultPlan(preempt_at=(3,)))
+    tr.run(4)
+    pipe = tr._pipeline
+    assert (pipe.depth, pipe.recycle, pipe.workers, pipe.mode) == (
+        2, 2, 1, "epoch")
+    tr.close()
+    assert tr.ckpt.all_steps() == [2, 4] and tr.ckpt.verify(4)
+    assert tr.max_retries == 2
+    assert [(e["step"], e["event"], e["restored"])
+            for e in tr.history if "event" in e] == [(2, "preemption", True)]
+    assert all("halo_staleness" in r for r in tr.history if "loss" in r)
 
 
 def test_trainer_straggler_skips_the_store_commit(graphs):
