@@ -65,12 +65,34 @@ which raises on failure:
      examples/train_gnn_torch.py for 100 steps, then 150 from its
      checkpoint, which must resume at step 100. Every step that runs, a
      replay or a rejected one included, must launch 27 SpMM and 5
-     compensation kernels.
+     compensation kernels;
+  7. serve faults — the serving fault matrix of tests/test_serve.py on
+     phase 3's full-width server, each drill on a server of its own over a
+     copy of the exact store: a slow batch (timeout, then ok), poisoned
+     store rows (store-corrupt degrade, repair, exact), poisoned rows with
+     the crc check off (nan-circuit, breaker open, probe, closed), a worker
+     crash and crashes past the retry budget, a burst past a queue of 4,
+     every row past the rho budget (ti, repair), drain. Each asserts the
+     reference test's statuses and events; exact answers are held to the
+     full forward within 1e-4, except the first one that reads rows a
+     repair rewrote store-free (its error is printed); after a poison
+     repair the repaired rows are served as targets and the drill's request
+     again, both within 1e-4. Then examples/serve_gnn_torch.py --fault as a
+     process (drain clean, nothing pending), and stream=False serving at
+     arxiv-cpu on the resident kernels against stream=True, bit for bit;
+  8. distributed — distributed LMC at phase 4's full width. 8a: two device
+     batches of 4 clusters stacked into one flat batch (383,232 rows), its
+     step on the card against the mean of the two per-device steps (loss
+     rtol 1e-4, every gradient leaf and the h/v rows in norm rtol 2e-4),
+     27 SpMM + 5 compensation launches per step, host and step ms. 8b: the
+     row-sharded step over an NCCL process group of one rank (a file://
+     init in a temp dir) against the plain step on the same batch: the
+     committed h and v bit for bit, loss and gradients at 8a's bar.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
-shapes, the SpMM ones as a whole layer, launches summed over phases 3-6
-(6d's CLI runs in processes of their own and is not counted),
+shapes, the SpMM ones as a whole layer, launches summed over phases 3-8
+(the CLIs of 6d and 7 run in processes of their own and are not counted),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -449,7 +471,9 @@ def _phase_train_kernels(big_sampler, small_sampler) -> dict:
     return out
 
 
-def _phase_slice(graph, gateway) -> dict:
+def _phase_slice(graph, gateway) -> tuple:
+    """Phase 3; returns its launches and, for phase 7, the served model:
+    (gnn, params, data on the card, full-graph logits)."""
     import numpy as np
     import torch
     from repro_torch.core import from_graph, make_infer_step
@@ -537,7 +561,8 @@ def _phase_slice(graph, gateway) -> dict:
               f"{1e3 * statistics.median(steps):.2f} request_p50_ms="
               f"{statistics.median(by_bucket[b]):.2f} "
               f"({len(by_bucket[b])} requests)")
-    return {"ell_spmm": spmm_n, "lmc_compensate": comp_n}
+    return ({"ell_spmm": spmm_n, "lmc_compensate": comp_n},
+            (gnn, params, data, full))
 
 
 def _counters() -> tuple:
@@ -581,6 +606,14 @@ def _named(tree, path: str = "") -> dict:
         return {k: v for i, sub in enumerate(tree)
                 for k, v in _named(sub, f"{path}[{i}]").items()}
     return {path.lstrip("."): tree}
+
+
+def _norm_rel(a, b) -> float:
+    """|a - b| / |b| in the 2-norm: the per-leaf bar of the SpMM's atomics
+    (ROADMAP C.2)."""
+    import torch
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
 
 
 def _check_ell_matches_segment(gnn, graph, sampler) -> None:
@@ -627,8 +660,7 @@ def _check_ell_matches_segment(gnn, graph, sampler) -> None:
     worst = 0.0
     for name, b in seg.items():
         a = ell[name]
-        rel = float(torch.linalg.vector_norm(a - b)
-                    / torch.linalg.vector_norm(b).clamp_min(1e-30))
+        rel = _norm_rel(a, b)
         worst = max(worst, rel)
         n_out, n_ctl = outside(a, b), outside(seg2[name], b)
         if n_out or n_ctl:
@@ -1022,6 +1054,417 @@ def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
     return launches
 
 
+def _add(launches: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def _poisoned_gids(srv) -> list:
+    """The store rows a serve-poison drill wrote NaN into (its event)."""
+    ev = [e for e in srv.events if e["kind"] == "poisoned"]
+    assert len(ev) == 1, srv.events
+    return [int(v) for v in
+            ev[0]["detail"].removeprefix("rows ").strip("[]").split(",")]
+
+
+def _phase_serve_faults(graph, small, served) -> dict:
+    """Phase 7: the serving fault matrix of tests/test_serve.py on the card,
+    on phase 3's full-width server (3x256 GCN over arxiv-like, ell, an exact
+    store), each drill on a server of its own over a copy of the store. Each
+    drill asserts the reference test's statuses and events; every exact
+    answer whose halo rows the store holds exactly is held to the full-graph
+    forward within 1e-4. A repair rewrites rows store-free (ti-grade,
+    serve/server.py ``_repair``), so the first exact answer that reads them
+    is printed with its error, not held to that bar; the repaired rows are
+    then served as targets (exact from exact neighbours, which rewrites
+    them exactly) and the drill's request must meet the bar again. Then the
+    serving CLI with its fault drills, and stream=False (the resident
+    kernels) against stream=True at arxiv-cpu, logits bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import HistoricalState, from_graph
+    from repro_torch.core.methods import RHO_BUDGET_DEFAULT
+    from repro_torch.serve import GNNServer, ServeConfig, warm_store
+    from repro_torch.train import FaultPlan
+    gnn, params, data, full = served
+    store = warm_store(gnn, params, data, device="cuda")
+    launches: dict = {}
+
+    def server(g, gnn_, params_, data_, store_, plan=None, **cfg):
+        cfg = {"backend": "ell", "return_logits": True,
+               "default_deadline_s": 60.0, **cfg}
+        return GNNServer(gnn_, g, params_, store=HistoricalState(
+            store_.h.clone()), config=ServeConfig(**cfg), data=data_,
+            fault_plan=None if plan is None else FaultPlan(**plan),
+            device="cuda")
+
+    def show(label, r, nodes=None, bar=True):
+        """Print one response; hold an exact answer to the full forward
+        (``bar``) or print its error (``bar=False``)."""
+        err = ""
+        if nodes is not None and r.status == "ok" and r.mode == "exact":
+            e = float(np.abs(r.logits - full[nodes]).max())
+            err = f" max|logit err| {e:.3g}"
+            if bar:
+                assert e <= SERVE_ATOL, (label, e)
+                err += f" (<= {SERVE_ATOL})"
+            else:
+                err += " (reads repaired rows: not held to 1e-4)"
+        print(f"phase 7{label}: {r.status} mode={r.mode} reason="
+              f"{r.degraded_reason} attempts={r.attempts} latency "
+              f"{1e3 * r.latency_s:.2f} ms{err}")
+
+    def drill(label, scenario, **kw):
+        t0 = time.time()
+        srv = server(graph, gnn, params, data, store, **kw)
+        start = time.time() - t0
+        _zero_counts()
+        try:
+            scenario(srv, label)
+        finally:
+            srv.close(drain=False, timeout=120.0)
+        _add(launches, _read_counts())
+        print(f"phase 7{label} events {[e['kind'] for e in srv.events]}; "
+              f"stats {srv.stats()}; server start {start:.1f} s")
+
+    def heal(srv, label, nodes):
+        """Serve the repaired rows as targets, then ``nodes``: both exact
+        within the bar."""
+        rows = np.array(_poisoned_gids(srv))
+        show(f"{label} repaired rows {rows.tolist()} as targets",
+             srv.infer(rows), rows)
+        show(f"{label} the drill's request again", srv.infer(nodes), nodes)
+
+    def slow(srv, label):
+        qs = [np.array([1]), np.array([2]), np.array([3])]
+        rs = [srv.infer(qs[0]), srv.infer(qs[1], deadline_s=0.3),
+              srv.infer(qs[2])]
+        for i, (r, q) in enumerate(zip(rs, qs)):
+            show(f"{label} request {i + 1}", r, q)
+        assert [r.status for r in rs] == ["ok", "timeout", "ok"], rs
+        assert any(e["kind"] == "slow-batch" for e in srv.events)
+        st = srv.stats()
+        assert st["pending"] == 0 and st["breaker"] == "closed", st
+
+    def poison(srv, label):
+        q = np.array([7, 8, 9])
+        r1, r2, r3 = srv.infer(q), srv.infer(q), srv.infer(q)
+        show(f"{label} request 1", r1, q)
+        show(f"{label} request 2 (poisoned)", r2, q)
+        show(f"{label} request 3", r3, q, bar=False)
+        assert r1.status == "ok" and r1.mode == "exact"
+        assert r2.status == "degraded" and r2.mode == "ti", r2
+        assert "store-corrupt" in r2.degraded_reason
+        assert np.isfinite(np.asarray(r2.classes)).all()
+        assert r3.status == "ok" and r3.mode == "exact", r3
+        assert any(e["kind"] == "repair" for e in srv.events)
+        assert torch.isfinite(srv.store.h).all()
+        heal(srv, label, q)
+
+    def breaker(srv, label):
+        q = np.array([4, 5, 6])
+        r1 = srv.infer(q)
+        r2 = srv.infer(q)
+        assert srv.stats()["breaker"] == "open"
+        r3, r4 = srv.infer(q), srv.infer(q)
+        for i, r in enumerate((r1, r2, r3)):
+            show(f"{label} request {i + 1}", r, q)
+        show(f"{label} request 4 (probe)", r4, q, bar=False)
+        assert r1.status == "ok"
+        assert r2.status == "degraded" and r2.degraded_reason == \
+            "nan-circuit", r2
+        assert np.isfinite(np.asarray(r2.classes)).all()
+        assert r3.status == "degraded" and r3.degraded_reason == \
+            "nan-circuit-open", r3
+        assert r4.status == "ok" and srv.stats()["breaker"] == "closed", r4
+        kinds = {e["kind"] for e in srv.events}
+        assert {"breaker-open", "breaker-closed", "repair"} <= kinds, kinds
+        heal(srv, label, q)
+
+    def crash(srv, label):
+        qs = [np.array([12, 13]), np.array([14])]
+        r1, r2 = srv.infer(qs[0]), srv.infer(qs[1])
+        show(f"{label} request 1", r1, qs[0])
+        show(f"{label} request 2", r2, qs[1])
+        assert r1.status == "ok" and r1.attempts == 2, r1
+        assert r2.status == "ok"
+        st = srv.stats()
+        assert st["worker_restarts"] == 1 and st["pending"] == 0, st
+
+    def crash_budget(srv, label):
+        qs = [np.array([20]), np.array([21]), np.array([22])]
+        rs = [srv.infer(q) for q in qs]
+        for i, (r, q) in enumerate(zip(rs, qs)):
+            show(f"{label} request {i + 1}", r, q)
+        assert rs[0].status == "error" and "retry budget" in rs[0].detail
+        assert [r.status for r in rs] == ["error", "error", "ok"], rs
+        assert srv.stats()["pending"] == 0
+
+    def burst(srv, label):
+        r1 = srv.infer(np.array([1]))
+        show(f"{label} request 1", r1, np.array([1]))
+        futs = [srv.submit(np.array([2]))]              # seq 2 stalls
+        time.sleep(0.1)
+        futs += [srv.submit(np.array([i])) for i in range(3, 33)]
+        rs = [f.result(timeout=120.0) for f in futs]
+        statuses = [r.status for r in rs]
+        for i, r in enumerate(rs):
+            if r.status == "ok":
+                show(f"{label} burst request {i + 2}", r, np.array([i + 2]))
+        last = srv.infer(np.array([40]))
+        show(f"{label} after the burst", last, np.array([40]))
+        print(f"phase 7{label} burst of 31 behind a stalled batch: "
+              f"{statuses.count('ok')} ok, {statuses.count('overloaded')} "
+              f"overloaded")
+        assert statuses.count("overloaded") >= 1, statuses
+        assert statuses.count("ok") >= 1, statuses
+        assert set(statuses) <= {"ok", "overloaded"}, statuses
+        assert last.status == "ok" and srv.stats()["pending"] == 0
+
+    def staleness(srv, label):
+        srv.notify_update(RHO_BUDGET_DEFAULT + 1)   # every row over budget
+        q = np.array([10, 11])
+        r1, r2 = srv.infer(q), srv.infer(q)
+        show(f"{label} request 1", r1, q)
+        show(f"{label} request 2", r2, q, bar=False)
+        assert r1.status == "degraded" and r1.mode == "ti", r1
+        assert "staleness" in r1.degraded_reason
+        assert r2.status == "ok" and r2.mode == "exact", r2
+        assert any(e["kind"] == "repair" for e in srv.events)
+
+    def drain(srv, label):
+        qs = [np.array([i, i + 100]) for i in range(10)]
+        futs = [srv.submit(q) for q in qs]
+        t0 = time.time()
+        assert srv.drain(timeout=120.0)
+        print(f"phase 7{label} drain of 10 in-flight requests: "
+              f"{1e3 * (time.time() - t0):.1f} ms")
+        for i, (f, q) in enumerate(zip(futs, qs)):
+            r = f.result(timeout=1.0)
+            show(f"{label} request {i + 1}", r, q)
+            assert r.status == "ok", r
+        assert srv.stats()["pending"] == 0
+
+    drill("a serve_slow", slow, plan=dict(serve_slow_at=(2,),
+                                          serve_slow_s=0.6))
+    drill("b serve_poison", poison, plan=dict(serve_poison_at=(2,)))
+    drill("c nan breaker", breaker, plan=dict(serve_poison_at=(2,)),
+          verify_rows=False, breaker_cooldown=1, breaker_heal_after=1)
+    drill("d serve_crash", crash, plan=dict(serve_crash_at=(1,)))
+    drill("e serve_crash over budget", crash_budget,
+          plan=dict(serve_crash_at=(1, 2)), max_attempts=1)
+    drill("f serve_burst", burst, plan=dict(serve_slow_at=(2,),
+                                            serve_slow_s=0.5), queue_depth=4)
+    drill("g staleness", staleness)
+    drill("h drain", drain)
+    del store
+    torch.cuda.empty_cache()
+
+    cli = Path(__file__).resolve().parent / "examples/serve_gnn_torch.py"
+    env = {**os.environ, "PYTHONPATH": str(cli.parent.parent / "src")}
+    t0 = time.time()
+    res = subprocess.run([sys.executable, str(cli), "--fault", "--requests",
+                          "24", "--backend", "ell"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = res.stdout
+    print(f"phase 7i serve_gnn_torch.py --fault --requests 24 --backend ell: "
+          f"{time.time() - t0:.1f} s; "
+          + "; ".join(line.strip() for line in out.splitlines()
+                      if line.startswith(("status:", "server events:",
+                                          "drain clean:", "latency"))))
+    assert "drain clean: True" in out and "pending after drain: 0" in out, \
+        out
+
+    # stream=False (resident kernels) against stream=True at arxiv-cpu
+    from repro_torch.models import make_gnn
+    sgnn = make_gnn("gcn", small.feature_dim, HIDDEN, small.num_classes,
+                    LAYERS, generator=torch.Generator().manual_seed(0)).cuda()
+    sparams = sgnn.params()
+    sdata = from_graph(small, device="cuda")
+    sstore = warm_store(sgnn, sparams, sdata, device="cuda")
+    with torch.no_grad():
+        sfull = sgnn.full_forward(sparams, sdata.x, sdata.edges,
+                                  sdata.self_w).cpu().numpy()
+    rng = np.random.default_rng(3)
+    reqs = [rng.choice(small.num_nodes, k, replace=False)
+            for k in REQUEST_SIZES]
+    logits = {}
+    for stream in (True, False):
+        srv = server(small, sgnn, sparams, sdata, sstore, stream=stream)
+        _zero_counts()
+        try:
+            rs = [srv.infer(q) for q in reqs]
+        finally:
+            assert srv.drain(timeout=120.0)
+        counts = _read_counts()
+        _add(launches, counts)
+        for r, q in zip(rs, reqs):
+            assert r.status == "ok" and r.mode == "exact", r
+            np.testing.assert_allclose(r.logits, sfull[q], rtol=0,
+                                       atol=SERVE_ATOL)
+        logits[stream] = [r.logits for r in rs]
+        resident = counts["ell_spmm_resident"] + counts[
+            "lmc_compensate_resident"]
+        streaming = counts["ell_spmm"] + counts["lmc_compensate"]
+        assert (resident > 0 and streaming == 0) if stream is False else \
+            (streaming > 0 and resident == 0), counts
+        print(f"phase 7j arxiv-cpu stream={stream}: {len(rs)} exact "
+              f"answers within {SERVE_ATOL} of the full forward; launches "
+              f"{counts}")
+    assert all(np.array_equal(a, b) for a, b in zip(logits[False],
+                                                    logits[True]))
+    print("phase 7j stream=False logits equal stream=True bit for bit")
+    return launches
+
+
+def _phase_distributed(graph, sampler) -> dict:
+    """Phase 8: distributed LMC at phase 4's full width (3x256 GCN,
+    arxiv-like, 32 parts, ell, streaming kernels). 8a: two device batches
+    of 4 clusters each stacked into one flat batch, its step on the card
+    against the mean of the two per-device steps. 8b: the row-sharded step
+    over an NCCL group of one rank (fetch_rows / route_rows on the card)
+    against the plain step on the same batch."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (LMC, HistoricalState, commit_rows,
+                                  from_graph, host_batch, make_train_step)
+    from repro_torch.core.distributed import (commit_owned_rows,
+                                              make_distributed_train_step,
+                                              stack_batches)
+    from repro_torch.dist import dp_axis_size, take_block
+    from repro_torch.optim import tree_map
+    launches: dict = {}
+    n = graph.num_nodes
+    gnn = _gcn(graph)
+    params = tree_map(lambda t: t.detach().cuda(), gnn.params())
+    data = from_graph(graph, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h0 = torch.randn((LAYERS, n, HIDDEN), generator=gen, device="cuda")
+    v0 = 1e-3 * torch.randn((LAYERS - 1, n, HIDDEN), generator=gen,
+                            device="cuda")
+    store = HistoricalState(h0, v0)   # a step reads the store, never writes
+    spmm, comp = _per_step_launches()
+
+    t0 = time.perf_counter()
+    sgs = [sampler.build_batch(sampler.clusters_at(i)) for i in (0, 1)]
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    flat = stack_batches(sgs, backend="ell")
+    stack_ms = 1e3 * (time.perf_counter() - t0)
+    rows = flat.batch_gids.shape[0] + flat.halo_gids.shape[0]
+    assert rows == 2 * sgs[0].n_ext, rows
+    fb = flat.to("cuda")
+    step = make_train_step(gnn, LMC, n, backend="ell")
+    reps, times = 3, []
+    _zero_counts()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, frows, _ = step(params, store, fb, data.x, data.self_w)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = _read_counts()
+    _add(launches, counts)
+    assert counts == {"ell_spmm": spmm * reps, "ell_spmm_resident": 0,
+                      "lmc_compensate": comp * reps,
+                      "lmc_compensate_resident": 0}, counts
+    del fb
+    per = []
+    _zero_counts()
+    for sg in sgs:
+        batch = host_batch(sg, backend="ell").to("cuda")
+        per.append(step(params, store, batch, data.x, data.self_w))
+    _add(launches, _read_counts())
+    # host_batch keeps a scale as shape (1,), stack_batches as the
+    # reference's shape (): compare the values
+    torch.testing.assert_close(loss.reshape(()), ((per[0][0] + per[1][0])
+                                                  / 2).reshape(()),
+                               rtol=1e-4, atol=0)
+    mean = tree_map(lambda a, b: (a + b) / 2, per[0][1], per[1][1])
+    worst = 0.0
+    for (name, a), b in zip(_named(grads, "grad").items(),
+                            _named(mean, "grad").values()):
+        worst = max(worst, _norm_rel(a, b))
+        assert _norm_rel(a, b) <= 2e-4, (name, _norm_rel(a, b))
+    nb = sgs[0].n_batch
+    for part, r in ((slice(0, nb), per[0][2]), (slice(nb, 2 * nb),
+                                                 per[1][2])):
+        for got, want in ((frows.h[:, part], r.h), (frows.v[:, part], r.v)):
+            worst = max(worst, _norm_rel(got, want))
+            assert _norm_rel(got, want) <= 2e-4, _norm_rel(got, want)
+    print(f"phase 8a stacked batch of 2 x {CLUSTERS} clusters: {rows} rows "
+          f"({flat.edge_src.shape[0]} edges); host: sample + build of the "
+          f"two subgraphs {sample_ms:.1f} ms, stack_batches with the ELL "
+          f"of A and Aᵀ {stack_ms:.1f} ms; flat step on the card (median of "
+          f"{reps}, synchronised) {statistics.median(times):.1f} ms; "
+          f"launches {counts} ({spmm} SpMM + {comp} compensation per step); "
+          f"loss {float(loss):.6f} vs the per-device mean "
+          f"{float((per[0][0] + per[1][0]) / 2):.6f} (rtol 1e-4); worst "
+          f"norm rel err over the grad leaves and h/v rows {worst:.3g} "
+          f"(<= 2e-4)")
+    del per, frows, flat, grads
+    torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'init'}",
+                            world_size=1, rank=0)
+    try:
+        assert dp_axis_size() == 1 and dist.get_backend() == "nccl"
+        batch = host_batch(sgs[0], backend="ell").to("cuda")
+        plain = HistoricalState(h0.clone(), v0.clone())
+        mine = HistoricalState(h0.clone(), v0.clone())
+        l1, g1, r1, _ = step(params, plain, batch, data.x, data.self_w)
+        commit_rows(plain, batch, r1, n)
+        dstep = make_distributed_train_step(gnn, LMC, n, backend="ell")
+        x_blk, sw_blk = (take_block(data.x, 0, 1, 0),
+                         take_block(data.self_w, 0, 1, 0))
+        # twice (a step never writes the store): the first call also sets
+        # up the NCCL communicator
+        _zero_counts()
+        dist_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l2, g2, owned, _ = dstep(params, mine, batch, x_blk, sw_blk)
+            torch.cuda.synchronize()
+            dist_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = _read_counts()
+        _add(launches, counts)
+        assert counts == {"ell_spmm": 2 * spmm, "ell_spmm_resident": 0,
+                          "lmc_compensate": 2 * comp,
+                          "lmc_compensate_resident": 0}, counts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, plain, batch, data.x, data.self_w)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        commit_owned_rows(mine, owned, n)
+        assert torch.equal(plain.h, mine.h) and torch.equal(plain.v, mine.v)
+        torch.testing.assert_close(l2, l1, rtol=1e-4, atol=0)
+        worst = 0.0
+        for (name, a), b in zip(_named(g2, "grad").items(),
+                                _named(g1, "grad").values()):
+            worst = max(worst, _norm_rel(a, b))
+            assert _norm_rel(a, b) <= 2e-4, (name, _norm_rel(a, b))
+        print(f"phase 8b row-sharded step over an NCCL group of 1: "
+              f"{owned.gids.numel()} owned rows routed and committed, h and "
+              f"v equal to the plain step's bit for bit; loss "
+              f"{float(l2):.6f} vs {float(l1):.6f}; worst grad norm rel "
+              f"err {worst:.3g} (<= 2e-4); step with fetch, all-reduce and "
+              f"route {dist_ms[1]:.1f} ms (first call, with the NCCL "
+              f"communicator's set-up, {dist_ms[0]:.1f} ms), the plain step "
+              f"on the same batch {plain_ms:.1f} ms (synchronised); "
+              f"launches {counts}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm.py:97",
@@ -1075,13 +1518,14 @@ def main() -> int:
     numbers = _phase_train_kernels(
         sampler, ClusterSampler(small, PARTS, CLUSTERS, parts=small_parts,
                                 seed=1))
-    launches = _phase_slice(graph, gateway)
+    launches, served = _phase_slice(graph, gateway)
     train_counts, phase4 = _phase_train(graph, sampler)
     for counts in (train_counts, _phase_resident(small, small_parts),
                    _phase_supervised(graph, sampler.parts, small,
-                                     small_parts, phase4)):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+                                     small_parts, phase4),
+                   _phase_serve_faults(graph, small, served),
+                   _phase_distributed(graph, sampler)):
+        _add(launches, counts)
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_FILES[name][0],
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],

@@ -31,8 +31,10 @@ Hardening:
   next ``save``/``wait``/``close``. Background and synchronous saves share
   one write path, so their bytes are identical.
 
-``reshard`` (re-placing a restored tree under new shardings) waits for
-distributed LMC.
+Saves are whole-tree, as in the reference. Under distributed LMC every rank
+holds row blocks of the stores (``repro_torch.dist``): :func:`unshard`
+gathers them into the whole tree that rank 0 saves, and :func:`reshard`
+gives each rank of any world size its blocks of a restored tree.
 """
 from __future__ import annotations
 
@@ -50,7 +52,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import all_gather_blocks
+from repro_torch.dist.sharding import dp_axis_size, dp_rank, take_block
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 MANIFEST_FORMAT = 2   # 1 = pre-checksum manifests (still restorable)
 
@@ -368,3 +373,42 @@ class CheckpointManager:
                         f"mismatch (corrupt data)")
             leaves.append(arr)
         return leaves, manifest
+
+
+def reshard(tree: Any, placement: Any, *, group=None, device=None) -> Any:
+    """This rank's share of a whole (restored) tree, on ``device`` (None:
+    the card): its row block of every row-blocked leaf and the whole of
+    every replicated one, each a fresh tensor.
+
+    ``placement`` has the structure of ``tree`` with a leaf's node axis
+    (``int``) where it is row-blocked and ``None`` where it is replicated
+    (``repro_torch.dist.lmc_placement``). The blocks follow ``group``'s world
+    size and this process's rank, whatever the world that saved the tree:
+    the restore path after the device count changed. Leaves may be numpy
+    arrays (``CheckpointManager.restore``) or tensors.
+    """
+    dev = resolve_device(device)
+    world, rank = dp_axis_size(group), dp_rank(group)
+
+    def one(leaf, axis):
+        if leaf is None:
+            return None
+        t = leaf if isinstance(leaf, torch.Tensor) \
+            else torch.from_numpy(np.asarray(leaf))
+        return take_block(t, axis, world, rank).to(dev, copy=True)
+
+    return tree_map(one, tree, placement)
+
+
+def unshard(tree: Any, placement: Any, num_nodes: int, *,
+            group=None) -> Any:
+    """The whole tree from every rank's share: each row-blocked leaf of
+    ``num_nodes`` rows gathered from the ranks of ``group`` (every rank
+    must call it and every rank gets the whole), replicated leaves as they
+    are. The inverse of :func:`reshard`; rank 0 then saves the result."""
+    def one(leaf, axis):
+        if leaf is None or axis is None:
+            return leaf
+        return all_gather_blocks(leaf, num_nodes, group, axis)
+
+    return tree_map(one, tree, placement)

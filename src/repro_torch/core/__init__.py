@@ -5,6 +5,8 @@
   lmc.py       — the training step (make_train_step) and the compensated
                  forward (make_infer_step), with deferred store writes
   exact.py     — full-batch ground truth and exact per-layer values
+  distributed.py — multi-device LMC (one cluster per device): stacked flat
+                 batches, and the row-sharded step over torch.distributed
 """
 from repro_torch.core.history import HistoricalState, init_history
 from repro_torch.core.methods import (CB_ONLY, CF_ONLY, CLUSTER, GAS, LMC,

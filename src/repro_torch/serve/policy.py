@@ -66,8 +66,11 @@ class ServeConfig:
             "ell" — the bucketed CUDA ELL SpMM); degradation swaps the
             *compensation*, never the aggregation, so both modes share the
             batch shape.
-        stream: kept for parity with the reference; ``None``/``True`` run the
-            streaming kernels, ``False`` (resident kernels) is not ported yet.
+        stream: kernel variant of ``backend="ell"``: ``None``/``True`` run
+            the streaming kernels; ``False`` runs the resident-source
+            kernels, which stage the whole gather source (the batch's rows,
+            or the store for the compensation) in shared memory and so serve
+            graphs under ~14.5k gathered rows only (else ``ValueError``).
         ti_fwd_mode: Eq.-9 mode of the degraded path ("lmc" blends the α
             estimate with β·fresh; "historical" serves
             the raw α ⊙ fresh invariance transform).

@@ -49,3 +49,19 @@ def test_train_gnn_torch_rejects_recycle_without_pipeline(tmp_path):
          "--ckpt-dir", str(tmp_path)],
         capture_output=True, text=True, timeout=120, env=env)
     assert res.returncode == 2 and "--no-prefetch is incompatible" in res.stderr
+
+
+def test_serve_gnn_torch_smoke():
+    out = _run("serve_gnn_torch.py", "--device", "cpu", "--requests", "8",
+               "--qps", "50", "--train-steps", "20")
+    assert "server up:" in out
+    assert "'ok': 8" in out
+    assert "drain clean: True" in out
+
+
+def test_serve_gnn_torch_fault_smoke():
+    out = _run("serve_gnn_torch.py", "--device", "cpu", "--fault",
+               "--requests", "24", "--qps", "80", "--train-steps", "20")
+    assert "server events:" in out
+    assert "drain clean: True" in out
+    assert "pending after drain: 0" in out

@@ -399,3 +399,132 @@ def test_pipeline_batch_staged_on_side_stream_equals_sync(cuda, backend):
     assert len(sync) == len(staged) == 5
     for a, b in zip(sync, staged):
         assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _norm_rel(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _dist_setup(cuda):
+    """ppi-cpu, 8 parts, GCN 2×32 on the card (tests/test_distributed.py's
+    configuration), random non-zero stores."""
+    from repro_torch.core import HistoricalState, from_graph
+    from repro_torch.graph import (ClusterSampler, make_sbm_dataset,
+                                   partition_graph)
+    from repro_torch.models import make_gnn
+    graph = make_sbm_dataset("ppi-cpu", seed=3)
+    sampler = ClusterSampler(graph, 8, 1, seed=1,
+                             parts=partition_graph(graph, 8, seed=0))
+    gnn = make_gnn("gcn", graph.feature_dim, 32, graph.num_classes, 2,
+                   generator=torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.detach().to(cuda), gnn.params())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = graph.num_nodes
+    store = HistoricalState(
+        h=torch.randn((2, n, 32), generator=g, device=cuda),
+        v=1e-2 * torch.randn((1, n, 32), generator=g, device=cuda))
+    return graph, sampler, gnn, params, from_graph(graph, device=cuda), store
+
+
+def test_stacked_step_on_gpu_is_the_mean_of_device_steps(cuda):
+    """chip_smoke phase 8a at a small size: the flat step over 4 stacked
+    clusters on the CUDA kernels against the mean of the 4 per-device steps
+    (loss rtol 1e-4; each gradient leaf and the h/v rows in norm, rtol
+    2e-4, the bar of the SpMM's atomics)."""
+    from repro_torch.core import LMC, host_batch, make_train_step
+    from repro_torch.core.distributed import stack_batches
+    graph, sampler, gnn, params, data, store = _dist_setup(cuda)
+    sgs = [sampler.build_batch(np.array([d])) for d in range(4)]
+    step = make_train_step(gnn, LMC, graph.num_nodes, backend="ell")
+    before = SPMM_MOD.LAUNCHES, COMP_MOD.LAUNCHES
+    loss, grads, rows, _ = step(params, store,
+                                stack_batches(sgs, backend="ell").to(cuda),
+                                data.x, data.self_w)
+    assert SPMM_MOD.LAUNCHES > before[0] and COMP_MOD.LAUNCHES == \
+        before[1] + 3   # 2 forward + 1 backward compensation
+    per = [step(params, store, host_batch(sg, backend="ell").to(cuda),
+                data.x, data.self_w) for sg in sgs]
+    torch.testing.assert_close(
+        loss.reshape(()), (sum(p[0] for p in per) / 4).reshape(()),
+        rtol=1e-4, atol=0)
+    mean = tree_map(lambda *g: sum(g) / 4, *(p[1] for p in per))
+    for a, b in zip(tree_leaves(grads), tree_leaves(mean), strict=True):
+        assert _norm_rel(a, b) <= 2e-4
+    nb = sgs[0].n_batch
+    for d, p in enumerate(per):
+        part = slice(d * nb, (d + 1) * nb)
+        assert _norm_rel(rows.h[:, part], p[2].h) <= 2e-4
+        assert _norm_rel(rows.v[:, part], p[2].v) <= 2e-4
+
+
+def test_distributed_step_over_nccl_matches_the_plain_step(cuda, tmp_path):
+    """chip_smoke phase 8b at a small size: the row-sharded step over an
+    NCCL group of one rank (fetch_rows, all-reduce and route_rows on the
+    card) against the plain step on the same batch: the committed h and v
+    bit for bit, loss and gradients at the SpMM's bar."""
+    import torch.distributed as dist
+    from repro_torch.core import (LMC, HistoricalState, commit_rows,
+                                  host_batch, make_train_step)
+    from repro_torch.core.distributed import (commit_owned_rows,
+                                              make_distributed_train_step)
+    graph, sampler, gnn, params, data, store = _dist_setup(cuda)
+    n = graph.num_nodes
+    batch = host_batch(sampler.build_batch(np.array([3])),
+                       backend="ell").to(cuda)
+    plain = HistoricalState(store.h.clone(), store.v.clone())
+    l1, g1, rows, _ = make_train_step(gnn, LMC, n, backend="ell")(
+        params, plain, batch, data.x, data.self_w)
+    commit_rows(plain, batch, rows, n)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'i'}",
+                            world_size=1, rank=0)
+    try:
+        l2, g2, owned, _ = make_distributed_train_step(
+            gnn, LMC, n, backend="ell")(params, store, batch, data.x,
+                                        data.self_w)
+        commit_owned_rows(store, owned, n)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(store.h, plain.h) and torch.equal(store.v, plain.v)
+    torch.testing.assert_close(l2, l1, rtol=1e-4, atol=0)
+    for a, b in zip(tree_leaves(g2), tree_leaves(g1), strict=True):
+        assert _norm_rel(a, b) <= 2e-4
+
+
+def test_resident_kernels_serve_the_streaming_logits(cuda):
+    """ServeConfig.stream=False on the card at arxiv-cpu, where the resident
+    kernels fit: the exact rung's logits equal stream=True's bit for bit,
+    through the resident launches only."""
+    from repro_torch.core import HistoricalState, from_graph
+    from repro_torch.graph import make_sbm_dataset
+    from repro_torch.models import make_gnn
+    from repro_torch.serve import GNNServer, ServeConfig, warm_store
+    graph = make_sbm_dataset("arxiv-cpu", seed=0)
+    gnn = make_gnn("gcn", graph.feature_dim, 256, graph.num_classes, 3,
+                   generator=torch.Generator().manual_seed(0)).to(cuda)
+    params = gnn.params()
+    data = from_graph(graph, device=cuda)
+    store = warm_store(gnn, params, data, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [rng.choice(graph.num_nodes, k, replace=False)
+            for k in (1, 8, 30, 100, 128)]
+    out = {}
+    for stream in (True, False):
+        srv = GNNServer(gnn, graph, params,
+                        store=HistoricalState(store.h.clone()), data=data,
+                        config=ServeConfig(backend="ell", stream=stream,
+                                           return_logits=True,
+                                           default_deadline_s=60.0),
+                        device=cuda)
+        before = (SPMM_MOD.LAUNCHES_RESIDENT, COMP_MOD.LAUNCHES_RESIDENT)
+        try:
+            rs = [srv.infer(q) for q in reqs]
+        finally:
+            assert srv.drain(timeout=60.0)
+        assert all(r.status == "ok" and r.mode == "exact" for r in rs)
+        resident = (SPMM_MOD.LAUNCHES_RESIDENT - before[0],
+                    COMP_MOD.LAUNCHES_RESIDENT - before[1])
+        assert (min(resident) > 0) == (stream is False), resident
+        out[stream] = [r.logits for r in rs]
+    assert all(np.array_equal(a, b) for a, b in zip(out[False], out[True]))

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
-``chip_smoke.py`` or the port's CLIs (``examples/*_torch.py``), and its entry
+``chip_smoke.py``, the port's CLIs (``examples/*_torch.py``) or the worker
+module the distributed tests spawn (``tests/_torch_dist.py``), and its entry
 points never drop to the CPU unasked."""
 import ast
 import os
@@ -15,6 +16,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 CHIP_SMOKE = REPO / "chip_smoke.py"
 PORT_CLIS = sorted((REPO / "examples").glob("*_torch.py"))
+# spawned by the distributed tests: its children must not import JAX
+DIST_WORKERS = REPO / "tests" / "_torch_dist.py"
 
 
 def _imported_modules(path: Path) -> list:
@@ -33,7 +36,8 @@ def _forbidden(mod: str) -> bool:
 
 
 @pytest.mark.parametrize("path",
-                         sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + PORT_CLIS,
+                         sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + PORT_CLIS
+                         + [DIST_WORKERS],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -44,7 +48,8 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.train, repro_torch.optim, repro_torch.graph.sampler, "
             "repro_torch.graph.partition, repro_torch.data, "
-            "repro_torch.checkpoint; "
+            "repro_torch.checkpoint, repro_torch.dist, "
+            "repro_torch.core.distributed; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -93,6 +98,9 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch, tmp_path):
         to_device_batch(sampler.sample(), backend="ell")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         state_from_reference(np.zeros((2, 3, 4)), np.zeros((1, 3, 4)))
+    from repro_torch.checkpoint import reshard
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        reshard({"store": (np.zeros((2, 3, 4)), None)}, {"store": (1, 1)})
     assert np.isfinite(data.x.numpy()).all()   # the CPU path still works
 
 
@@ -114,11 +122,12 @@ def test_port_clis_refuse_to_run_on_cpu_unasked(cli, tmp_path):
     fails, naming the way to the CPU, and trains nothing."""
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
+    args = {"train_gnn_torch.py": ["--steps", "50", "--ckpt-dir",
+                                   str(tmp_path)],
+            "serve_gnn_torch.py": ["--train-steps", "50"]}.get(
+                cli.name, ["--steps", "50"])
     res = subprocess.run([sys.executable, str(cli), "--preset", "ppi-cpu",
-                          "--steps", "50", "--ckpt-dir", str(tmp_path)]
-                         if "train" in cli.name else
-                         [sys.executable, str(cli), "--preset", "ppi-cpu",
-                          "--steps", "50"],
+                          *args],
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr

@@ -191,3 +191,22 @@ def test_policy_pieces_and_validation(setup):
         assert s.infer(np.arange(129)).status == "too-large"
     finally:
         s.close(drain=False)
+
+
+def test_resident_kernels_serve_the_same_logits(setup):
+    """``ServeConfig.stream=False`` serves through the resident-source
+    kernels (here their plain twins): the exact rung's logits equal the
+    streaming setting's, and both the reference's full forward."""
+    full = setup[0]
+    nodes = np.array([0, 17, 999, 2047, 512, 3, 3])
+    logits = {}
+    for stream in (True, False):
+        s = _server(setup, backend="ell", stream=stream, return_logits=True)
+        try:
+            r = s.infer(nodes)
+            assert r.status == "ok" and r.mode == "exact"
+            logits[stream] = r.logits
+        finally:
+            assert s.drain(timeout=60.0)
+    np.testing.assert_array_equal(logits[False], logits[True])
+    np.testing.assert_allclose(logits[False], full[nodes], rtol=0, atol=ATOL)
