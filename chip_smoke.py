@@ -87,12 +87,34 @@ which raises on failure:
      27 SpMM + 5 compensation launches per step, host and step ms. 8b: the
      row-sharded step over an NCCL process group of one rank (a file://
      init in a temp dir) against the plain step on the same batch: the
-     committed h and v bit for bit, loss and gradients at 8a's bar.
+     committed h and v bit for bit, loss and gradients at 8a's bar;
+  9. LM serving — the LM zoo's prefill and cached decode (no kernel of ours
+     runs here; every product is a PyTorch call). 9a: llama3.2-1b at its
+     published widths (16 layers, d 2048, 32 heads / 8 KV, d_ff 8192,
+     vocab 128256 padded to 129024, tied embeddings), random bf16 weights
+     drawn on the card from a seeded generator: prefill 4x2047 (max_seq
+     2304) after a 4x2048 warm-up, the decode step at position 2047 against
+     that 2048-token prefill (max rel err <= 0.02, with the two prefills'
+     caches at their shared positions printed beside it), 64 greedy decode
+     steps (finite logits) with ms/step, tokens/s, the bytes bound and a
+     profiler split of 4 more steps; chunked attention at (1, 4096, 32, 64)
+     bf16 against unchunked (<= 0.02) and a 1x4096 prefill through it; peak
+     memory. 9b: deepseek-v2-lite-16b (1 dense + 2 MoE blocks; its decode
+     check also with a capacity no expert can exceed, since the prefill can
+     drop the last token's assignments), zamba2-1.2b whole (38 layers) and
+     rwkv6-7b (2 blocks) at their published widths: prefill 2x512, decode
+     against the 513-token prefill within the reference's per-family
+     tolerance, 16 finite decode steps, timings. 9c: the ten reduced
+     configs on the card against the port on the CPU with the same
+     parameters (loss, prefill and decode logits and caches, within the
+     per-family tolerance), then examples/serve_decode_torch.py as a
+     process.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
 shapes, the SpMM ones as a whole layer, launches summed over phases 3-8
-(the CLIs of 6d and 7 run in processes of their own and are not counted),
+(the CLIs of 6d, 7 and 9c run in processes of their own and are not
+counted; phase 9 launches none of these kernels),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -675,6 +697,23 @@ def _check_ell_matches_segment(gnn, graph, sampler) -> None:
           f"{len(seg)} grad leaves and the h/v rows {worst:.3g} (<= 2e-4)")
 
 
+def _device_events(prof) -> dict:
+    """{name: (ms, count)} of a torch.profiler run's device-side events
+    (kernels, copies) only: a CPU op's device time repeats the time of the
+    kernels it launched."""
+    import torch
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        ms, n = out.get(e.key, (0.0, 0))
+        out[e.key] = (ms + us / 1e3, n + e.count)
+    return out
+
+
 def _step_breakdown(tr, sampler) -> float:
     """Where a full-width step's time goes, on one more batch (slot 1 of the
     schedule, outside the counted run): the host build, the batch copy to
@@ -713,17 +752,8 @@ def _step_breakdown(tr, sampler) -> float:
         tr._step(*args)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name: dict = {}
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's device time
-        # repeats the time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    by_name = {k: ms for k, (ms, _) in _device_events(prof).items()
+               if ms > 0}
     if not by_name:
         print("phase 4 profiler: no device time recorded (device busy "
               "share not measured)")
@@ -1465,6 +1495,312 @@ def _phase_distributed(graph, sampler) -> dict:
     return launches
 
 
+LM_TOL = {"moe": 0.12, "hybrid": 0.05, "default": 0.02}  # tests/test_lm_archs.py:14
+LM_FULL = "llama3.2-1b"
+LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_DECODE = 4, 2047, 2304, 64
+LM_CUT = (("deepseek-v2-lite-16b", {"dense_blocks": 1, "moe_blocks": 2}),
+          ("zamba2-1.2b", {}),
+          ("rwkv6-7b", {"blocks": 2}))
+LM_CUT_BATCH, LM_CUT_PROMPT, LM_CUT_DECODE = 2, 512, 16
+
+
+def _lm_tol(cfg) -> float:
+    return LM_TOL.get(cfg.family, LM_TOL["default"])
+
+
+def _rel_err(ref, out) -> float:
+    """max |ref - out| over max |ref| (the reference tests' bf16 measure)."""
+    ref, out = ref.float(), out.float().to(ref.device)
+    return float((ref - out).abs().max() / ref.abs().max().clamp(min=1e-6))
+
+
+def _tree_rel_err(ref: dict, out: dict) -> float:
+    from repro_torch.models.spec import tree_leaves
+    a, b = dict(tree_leaves(ref)), dict(tree_leaves(out))
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    return max(_rel_err(a[k], b[k]) for k in a)
+
+
+def _event_ms(fn) -> tuple:
+    """(fn's result, ms between CUDA events recorded before and after it):
+    for an eager model call, the time the card takes to run what the host
+    enqueues, host launch gaps included."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _profile_device(fn) -> tuple:
+    """(wall ms, device ms, device launches) of one synchronised call of fn
+    under torch.profiler; device ms sums the kernels' and copies' own
+    times. None for the device numbers if the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = _device_events(prof).values()
+    dev_ms = sum(ms for ms, _ in events)
+    launches = sum(n for _, n in events)
+    if not launches:
+        return wall_ms, None, None
+    return wall_ms, dev_ms, launches
+
+
+def _nbytes(tree: dict) -> int:
+    from repro_torch.models.spec import tree_leaves
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def _greedy(lm, params, caches, tok, start: int, steps: int):
+    """``steps`` greedy decode steps from position ``start``; returns (the
+    tokens (B, steps), the last logits, whether every step's logits were
+    finite, the caches)."""
+    import torch
+    finite = torch.ones((), dtype=torch.bool, device=tok.device)
+    out, logits = [], None
+    for i in range(steps):
+        logits, caches = lm.decode_step(params, caches, tok, start + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1), logits, bool(finite), caches
+
+
+def _lm_full_width() -> None:
+    """Phase 9a: llama3.2-1b at its published widths on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import attention
+    from repro_torch.models.lm import LM
+    cfg = get_config(LM_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, init_ms = _event_ms(lambda: lm.init_params(gen))
+    pbytes = _nbytes(params)
+    print(f"phase 9a {LM_FULL}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.dh}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} padded to {lm.vpad}, tied "
+          f"embeddings {cfg.tie_embeddings}: {pbytes} bytes of parameters "
+          f"drawn on the card in {init_ms:.1f} ms")
+    b, s = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device="cuda")
+    # the 2048-token prompt: the decode check's reference, and the warm-up
+    (full, full_caches), full_ms = _event_ms(
+        lambda: lm.prefill(params, toks, LM_MAX_SEQ))
+    (logits, caches), prefill_ms = _event_ms(
+        lambda: lm.prefill(params, toks[:, :s], LM_MAX_SEQ))
+    assert logits.shape == (b, lm.vpad) and bool(torch.isfinite(logits).all())
+    cache_bytes = _nbytes(caches)
+    # the two prefills' caches at the positions they share: what the card's
+    # bf16 rounding alone moves through 16 layers, no decode involved
+    shared = max(_rel_err(full_caches["blocks"][k][:, :, :s],
+                          caches["blocks"][k][:, :, :s]) for k in ("k", "v"))
+    del full_caches
+    (dec, caches), first_ms = _event_ms(
+        lambda: lm.decode_step(params, caches, toks[:, s:], s))
+    err = _rel_err(full, dec)
+    print(f"phase 9a prefill {b}x{s} (max_seq {LM_MAX_SEQ}): "
+          f"{prefill_ms:.1f} ms, {b * s / prefill_ms * 1e3:.0f} tokens/s "
+          f"(the {b}x{s + 1} prefill before it, the warm-up: "
+          f"{full_ms:.1f} ms); caches {cache_bytes} bytes; decode_step at "
+          f"position {s} against the prefill of {s + 1} tokens: max rel "
+          f"err {err:.3e} (<= {LM_TOL['default']}); the two prefills' K/V "
+          f"caches at their {s} shared positions: max rel err {shared:.3e}")
+    assert err <= LM_TOL["default"], err
+    gen_ids, last, finite, caches = _greedy(
+        lm, params, caches, dec.argmax(-1)[:, None], s + 1, 1)  # warm-up
+    (gen_ids, last, finite, caches), dec_ms = _event_ms(
+        lambda: _greedy(lm, params, caches, gen_ids[:, -1:], s + 2,
+                        LM_DECODE))
+    assert finite and gen_ids.shape == (b, LM_DECODE)
+    assert int(gen_ids.max()) < lm.vpad
+    step_ms = dec_ms / LM_DECODE
+    bound_ms = 1e3 * (pbytes + cache_bytes) / HBM_BYTES_PER_S
+    wall, dev, launches = _profile_device(
+        lambda: _greedy(lm, params, caches, gen_ids[:, -1:],
+                        s + 2 + LM_DECODE, 4))
+    busy = ("device time not recorded by the profiler" if dev is None else
+            f"device time {dev / 4:.2f} ms and {launches / 4:.0f} launches "
+            f"per step, busy share {dev / wall:.3f}")
+    print(f"phase 9a greedy decode of {LM_DECODE} tokens x {b} sequences "
+          f"(first step, after the check, {first_ms:.1f} ms): "
+          f"{step_ms:.2f} ms/step, {b / step_ms * 1e3:.0f} tokens/s; bytes "
+          f"bound of a step (parameters + caches once over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) {bound_ms:.3f} ms; profiler "
+          f"over 4 more steps: wall {wall / 4:.2f} ms/step, {busy}")
+
+    # chunked attention at this width, then a prompt long enough to take it
+    q, k, v = (torch.randn((1, 4096, cfg.n_heads, cfg.dh), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    chunked = attention(q, k, v, causal=True, kv_chunk=1024)
+    plain = attention(q, k, v, causal=True, kv_chunk=0)
+    cerr = _rel_err(plain, chunked)
+    assert cerr <= LM_TOL["default"], cerr
+    del q, k, v, chunked, plain, caches
+    long = torch.randint(0, cfg.vocab, (1, 4096), generator=gen,
+                         device="cuda")
+    assert 4096 > 2 * cfg.attn_chunk and 4096 % cfg.attn_chunk == 0
+    (llog, _), long_ms = _event_ms(lambda: lm.prefill(params, long, 4096))
+    assert bool(torch.isfinite(llog).all())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 9a attention (1, 4096, {cfg.n_heads}, {cfg.dh}) bf16, "
+          f"kv_chunk 1024 against unchunked: max rel err {cerr:.3e}; "
+          f"prefill 1x4096 through the chunked path ({4096 // cfg.attn_chunk}"
+          f" KV chunks per layer): {long_ms:.1f} ms, logits finite; peak "
+          f"memory allocated in 9a {peak} bytes")
+
+
+def _decode_vs_prefill(lm, params, toks, max_seq: int) -> tuple:
+    """Prefill toks[:, :-1] (timed, after a warm-up that prefills all of
+    toks) and decode the last token from its caches; returns (prefill ms,
+    the decode step's logits, the caches, max rel err of those logits
+    against the prefill of all of toks)."""
+    import torch
+    s = toks.shape[1] - 1
+    (full, _), _ = _event_ms(lambda: lm.prefill(params, toks, max_seq))
+    (logits, caches), pre_ms = _event_ms(
+        lambda: lm.prefill(params, toks[:, :s], max_seq))
+    assert bool(torch.isfinite(logits).all())
+    dec, caches = lm.decode_step(params, caches, toks[:, s:], s)
+    return pre_ms, dec, caches, _rel_err(full, dec)
+
+
+def _lm_published_widths() -> None:
+    """Phase 9b: the other families at their published widths, depth cut.
+    For the MoE arch the decode check runs twice: at the published capacity
+    factor, where the prefill of s+1 tokens can drop the last token's
+    expert assignments while a one-token decode step never does (printed),
+    and with a capacity no expert can exceed (held to the tolerance)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import moe_capacity
+    from repro_torch.models.lm import LM
+    b, s = LM_CUT_BATCH, LM_CUT_PROMPT
+    max_seq = s + LM_CUT_DECODE
+    for name, prof in LM_CUT:
+        cfg = get_config(name)
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, depth_profile=prof)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = lm.init_params(gen)
+        depth = {seg.name: seg.count for seg in lm.segments}
+        toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                             device="cuda")
+        pre_ms, dec, caches, err = _decode_vs_prefill(lm, params, toks,
+                                                      max_seq)
+        check = f"max rel err {err:.3e} (<= {_lm_tol(cfg)})"
+        if cfg.moe is not None:
+            roomy = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts))),
+                depth_profile=prof)
+            roomy.load_params(params)
+            err_roomy = _decode_vs_prefill(roomy, params, toks, max_seq)[3]
+            check = (f"max rel err {err:.3e} at capacity factor "
+                     f"{cfg.moe.capacity_factor} (capacity "
+                     f"{moe_capacity(cfg, s + 1)} slots for {s + 1} tokens x "
+                     f"top-{cfg.moe.top_k} over {cfg.moe.num_experts} "
+                     f"experts: the prefill may drop the last token's "
+                     f"assignments, the decode step drops none), "
+                     f"{err_roomy:.3e} with no drop possible "
+                     f"(<= {_lm_tol(cfg)})")
+            err = err_roomy
+            del roomy
+        assert err <= _lm_tol(cfg), (name, check)
+        (ids, last, finite, _), dec_ms = _event_ms(
+            lambda: _greedy(lm, params, caches, dec.argmax(-1)[:, None],
+                            s + 1, LM_CUT_DECODE - 1))
+        assert finite and bool(torch.isfinite(dec).all())
+        step_ms = dec_ms / (LM_CUT_DECODE - 1)
+        print(f"phase 9b {name} ({cfg.family}, d {cfg.d_model}, depth "
+              f"{depth}, {_nbytes(params)} bytes of parameters): prefill "
+              f"{b}x{s} {pre_ms:.1f} ms ({b * s / pre_ms * 1e3:.0f} "
+              f"tokens/s); decode against the prefill of {s + 1}: {check}; "
+              f"{LM_CUT_DECODE} decode steps, finite, the last "
+              f"{LM_CUT_DECODE - 1} at {step_ms:.2f} ms/step "
+              f"({b / step_ms * 1e3:.0f} tokens/s); peak memory "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+        del lm, params, caches, dec
+        torch.cuda.empty_cache()
+
+
+def _lm_reduced_on_card() -> None:
+    """Phase 9c: the ten reduced configs on the card against the port on
+    the CPU, with the same parameters; then the serving CLI."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES, reduced_config
+    from repro_torch.models.lm import LM
+    from repro_torch.models.spec import tree_map
+    b, s, max_seq = 2, 32, 64
+    for name in ARCH_NAMES:
+        cfg = reduced_config(name)
+        cpu = LM(cfg, device="cpu")
+        pc = cpu.init_params(torch.Generator().manual_seed(0))
+        card = LM(cfg)
+        pg = card.load_params(tree_map(lambda t: t.detach().to("cuda"), pc))
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=g)
+        mem = None
+        if cfg.family in ("vlm", "encdec"):
+            mem = (torch.randn((b, cfg.frontend_tokens or 16, cfg.d_model),
+                               generator=g) * 0.05).to(torch.bfloat16)
+        gmem = None if mem is None else mem.cuda()
+        batch = {"tokens": toks[:, :s], "loss_mask": torch.ones(b, s),
+                 "memory": mem}
+        with torch.no_grad():
+            lc = cpu.train_loss(pc, batch)
+            lg = card.train_loss(pg, {k: None if v is None else v.cuda()
+                                      for k, v in batch.items()})
+        cl, cc = cpu.prefill(pc, toks[:, :s], max_seq, mem)
+        gl, gc = card.prefill(pg, toks[:, :s].cuda(), max_seq, gmem)
+        errs = {"loss": abs(float(lc) - float(lg)) / abs(float(lc)),
+                "prefill": _rel_err(cl, gl), "caches": _tree_rel_err(cc, gc)}
+        cd, cc = cpu.decode_step(pc, cc, toks[:, s:], s, mem)
+        gd, gc = card.decode_step(pg, gc, toks[:, s:].cuda(), s, gmem)
+        errs.update(decode=_rel_err(cd, gd), decode_caches=_tree_rel_err(cc, gc))
+        tol = _lm_tol(cfg)
+        assert all(v <= tol for v in errs.values()), (name, errs)
+        print(f"phase 9c {name} ({cfg.family}) card vs CPU, max rel err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (<= {tol})")
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, str(root / "examples" / "serve_decode_torch.py"),
+         "--arch", LM_FULL], cwd=root, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.splitlines()
+    assert lines[0].startswith("prefill 4x32:"), lines
+    assert lines[1].startswith("decoded 16 tokens/seq in"), lines
+    print(f"phase 9c serve_decode_torch.py --arch {LM_FULL} (a process, "
+          f"{time.time() - t0:.1f} s): {lines[0]}; {lines[1]}")
+
+
+def _phase_lm() -> None:
+    """Phase 9: the LM zoo's serving path (no kernel of ours runs here)."""
+    t0 = time.time()
+    _lm_full_width()
+    _lm_published_widths()
+    _lm_reduced_on_card()
+    print(f"phase 9 time: {time.time() - t0:.1f} s")
+
+
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm.py:97",
@@ -1526,6 +1862,7 @@ def main() -> int:
                    _phase_serve_faults(graph, small, served),
                    _phase_distributed(graph, sampler)):
         _add(launches, counts)
+    _phase_lm()
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_FILES[name][0],
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],

@@ -1,4 +1,4 @@
-"""Load the reference package's GNN parameters and stores into the port.
+"""Load the reference package's parameters, stores and caches into the port.
 
 The reference keeps GNN parameters as a nested dict
 ``{"embed": {...}, "layers": {name: [per-layer]}, "head": {...}}`` of arrays
@@ -6,6 +6,11 @@ applied as ``h @ w``; :class:`repro_torch.models.gnn.GNN` keeps the same
 layout and orientation, so conversion is a leaf-for-leaf copy. Pass the
 reference tree with its leaves as numpy arrays (``np.asarray`` of each).
 Historical stores have the same (L, n, d) layout in both packages.
+
+LM parameters and decode caches are nested dicts in both packages, with the
+same keys and stacked layer axes (``repro_torch.models.lm.LM``). Their bf16
+leaves arrive as ``ml_dtypes.bfloat16`` arrays, which torch cannot take
+directly; they pass through float32, which holds every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import torch
 from repro_torch.core.history import HistoricalState
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import GNN
+from repro_torch.models.lm import LM
+from repro_torch.models.spec import tree_leaves
 
 
 def _leaves(tree, path=()) -> dict:
@@ -64,3 +71,56 @@ def state_from_reference(h, v, device=None) -> HistoricalState:
     return HistoricalState(
         h=torch.tensor(np.asarray(h), device=dev),
         v=None if v is None else torch.tensor(np.asarray(v), device=dev))
+
+
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array (bf16 ones included) as a fresh tensor of ``dtype``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+
+def _unflatten(leaves: dict) -> dict:
+    out: dict = {}
+    for path, v in leaves.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def lm_params_from_reference(lm: LM, tree) -> dict:
+    """Load the reference ``LM``'s parameter tree (leaves as numpy arrays)
+    into ``lm`` on ``lm.device``, each leaf in the dtype of ``lm``'s spec;
+    returns ``lm.params()``.
+
+    Raises ValueError if a leaf of the spec is missing from ``tree``, a leaf
+    of ``tree`` is left over, or a shape differs — before loading anything.
+    """
+    ours = {p: s for p, s in tree_leaves(lm.params_spec())}
+    theirs = {p: np.asarray(v) for p, v in tree_leaves(tree)}
+    missing = sorted(map(str, set(ours) - set(theirs)))
+    extra = sorted(map(str, set(theirs) - set(ours)))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"left over {extra}")
+    for p, s in ours.items():
+        if tuple(theirs[p].shape) != tuple(s.shape):
+            raise ValueError(f"parameter {p}: reference shape "
+                             f"{tuple(theirs[p].shape)} != {tuple(s.shape)}")
+    return lm.load_params(_unflatten(
+        {p: _tensor(theirs[p], s.dtype, lm.device) for p, s in ours.items()}))
+
+
+def lm_caches_from_reference(tree, device=None) -> dict:
+    """A reference decode-cache tree (leaves as numpy arrays) as tensors of
+    the same dtypes on ``device`` (None: the card), copied, never shared."""
+    dev = resolve_device(device)
+    return _unflatten({p: _tensor(v, _TORCH_DTYPES[np.asarray(v).dtype.name],
+                                  dev)
+                       for p, v in tree_leaves(tree)})

@@ -65,3 +65,12 @@ def test_serve_gnn_torch_fault_smoke():
     assert "server events:" in out
     assert "drain clean: True" in out
     assert "pending after drain: 0" in out
+
+
+def test_serve_decode_torch_smoke():
+    out = _run("serve_decode_torch.py", "--device", "cpu", "--arch",
+               "zamba2-1.2b", "--batch", "2", "--prompt-len", "8",
+               "--tokens", "4")
+    assert "prefill 2x8:" in out
+    assert "decoded 4 tokens/seq in" in out and "tok/s total" in out
+    assert out.count("  seq") == 2

@@ -49,7 +49,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.train, repro_torch.optim, repro_torch.graph.sampler, "
             "repro_torch.graph.partition, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.dist, "
-            "repro_torch.core.distributed; "
+            "repro_torch.core.distributed, repro_torch.models.lm, "
+            "repro_torch.configs, repro_torch.launch.steps; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -101,6 +102,13 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch, tmp_path):
     from repro_torch.checkpoint import reshard
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         reshard({"store": (np.zeros((2, 3, 4)), None)}, {"store": (1, 1)})
+    from repro_torch.configs import reduced_config
+    from repro_torch.convert import lm_caches_from_reference
+    from repro_torch.models import LM
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(reduced_config("llama3.2-1b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_caches_from_reference({"k": np.zeros((2, 3), np.float32)})
     assert np.isfinite(data.x.numpy()).all()   # the CPU path still works
 
 
@@ -119,15 +127,16 @@ def test_chip_smoke_fails_alone_and_without_cuda(tmp_path):
 @pytest.mark.parametrize("cli", PORT_CLIS, ids=lambda p: p.name)
 def test_port_clis_refuse_to_run_on_cpu_unasked(cli, tmp_path):
     """Without ``--device`` a port CLI means the card: with none visible it
-    fails, naming the way to the CPU, and trains nothing."""
+    fails, naming the way to the CPU, and writes nothing."""
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
-    args = {"train_gnn_torch.py": ["--steps", "50", "--ckpt-dir",
-                                   str(tmp_path)],
-            "serve_gnn_torch.py": ["--train-steps", "50"]}.get(
-                cli.name, ["--steps", "50"])
-    res = subprocess.run([sys.executable, str(cli), "--preset", "ppi-cpu",
-                          *args],
+    args = {"train_gnn_torch.py": ["--preset", "ppi-cpu", "--steps", "50",
+                                   "--ckpt-dir", str(tmp_path)],
+            "serve_gnn_torch.py": ["--preset", "ppi-cpu",
+                                   "--train-steps", "50"],
+            "serve_decode_torch.py": ["--arch", "llama3.2-1b"]}.get(
+                cli.name, ["--preset", "ppi-cpu", "--steps", "50"])
+    res = subprocess.run([sys.executable, str(cli), *args],
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode != 0
     assert "CUDA is not available" in res.stderr
