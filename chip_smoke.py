@@ -109,12 +109,31 @@ which raises on failure:
      parameters (loss, prefill and decode logits and caches, within the
      per-family tolerance), then examples/serve_decode_torch.py as a
      process.
+ 10. LM training — the LM zoo's train step (``make_lm_train_step``: the
+     reference's custom backward passes, remat, microbatched accumulation,
+     the clipped update; again no kernel of ours, and the launch counts
+     stay 0). 10a: llama3.2-1b at its published widths, not cut, remat
+     "full", AdamW (lr 3e-3), 10 steps of 2x4096 tokens from
+     ``TokenStream(seed=0)`` (chunked attention: 4 KV chunks of 1024, each
+     rematerialized): every loss and gradient norm finite, the last loss
+     below the first; step ms (median of steps 2-10), tokens/s, the share
+     of the bf16 dense peak the model FLOPs reach, the AdamW update alone,
+     a profiler split of one more step, peak memory. 10b: deepseek-v2-lite
+     (1 dense + 2 MoE blocks), zamba2-1.2b whole (4 microbatches) and
+     rwkv6-7b (2 blocks, 4 microbatches) at published widths, 3 steps of
+     4x512 each, finite, step ms and peak memory; the MoE block's backward
+     twice, bit for bit. 10c: one step of each of the ten reduced configs
+     (its own optimizer and microbatches) on the card against the port on
+     the CPU from the same parameters and batch: in f32 the loss, gradient
+     norm and every new parameter leaf, in bf16 the loss and gradient
+     norm, within the per-family tolerance; AdamW-8bit once. 10d:
+     examples/train_lm_torch.py --steps 20 as a process, its loss falling.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
 shapes, the SpMM ones as a whole layer, launches summed over phases 3-8
-(the CLIs of 6d, 7 and 9c run in processes of their own and are not
-counted; phase 9 launches none of these kernels),
+(the CLIs of 6d, 7, 9c and 10d run in processes of their own and are not
+counted; phases 9 and 10 launch none of these kernels),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -123,6 +142,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1537,9 +1557,10 @@ def _event_ms(fn) -> tuple:
 
 
 def _profile_device(fn) -> tuple:
-    """(wall ms, device ms, device launches) of one synchronised call of fn
-    under torch.profiler; device ms sums the kernels' and copies' own
-    times. None for the device numbers if the profiler recorded none."""
+    """(wall ms, device ms, device launches, {kernel: (ms, launches)}) of
+    one synchronised call of fn under torch.profiler; device ms sums the
+    kernels' and copies' own times. None for the device numbers if the
+    profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1549,12 +1570,30 @@ def _profile_device(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = _device_events(prof).values()
-    dev_ms = sum(ms for ms, _ in events)
-    launches = sum(n for _, n in events)
+    events = _device_events(prof)
+    dev_ms = sum(ms for ms, _ in events.values())
+    launches = sum(n for _, n in events.values())
     if not launches:
-        return wall_ms, None, None
-    return wall_ms, dev_ms, launches
+        return wall_ms, None, None, events
+    return wall_ms, dev_ms, launches, events
+
+
+def _kernel_kinds(events: dict) -> dict:
+    """Device ms per kind of kernel, from the kernels' names: cuBLAS and
+    CUTLASS GEMMs, PyTorch's elementwise kernels, reductions (softmax,
+    norms, sums), index/gather/scatter kernels, copies and fills."""
+    kinds = (("gemm", ("gemm", "xmma", "cutlass", "sm90_")),
+             ("elementwise", ("elementwise",)),
+             ("reduce", ("reduce", "softmax", "norm")),
+             ("index", ("index", "gather", "scatter")),
+             ("copy/fill", ("copy", "memcpy", "memset", "fill", "cat")))
+    out: dict = {}
+    for name, (ms, _) in events.items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds if any(w in low for w in keys)),
+                    "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
 
 
 def _nbytes(tree: dict) -> int:
@@ -1629,7 +1668,7 @@ def _lm_full_width() -> None:
     assert int(gen_ids.max()) < lm.vpad
     step_ms = dec_ms / LM_DECODE
     bound_ms = 1e3 * (pbytes + cache_bytes) / HBM_BYTES_PER_S
-    wall, dev, launches = _profile_device(
+    wall, dev, launches, _ = _profile_device(
         lambda: _greedy(lm, params, caches, gen_ids[:, -1:],
                         s + 2 + LM_DECODE, 4))
     busy = ("device time not recorded by the profiler" if dev is None else
@@ -1801,6 +1840,266 @@ def _phase_lm() -> None:
     print(f"phase 9 time: {time.time() - t0:.1f} s")
 
 
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense, tensor cores
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 4096, 10
+LM_TRAIN_CUT_BATCH, LM_TRAIN_CUT_SEQ, LM_TRAIN_CUT_STEPS = 4, 512, 3
+
+
+def _lm_batch(stream, device) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in next(stream).items()}
+
+
+def _lm_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6·N·tokens for the parameters'
+    products (the tied embedding counted once, as the head), plus the
+    attention's two products forward and twice that backward over the
+    whole S×S square the port computes (masked, not skipped); remat's
+    recomputation is not model work and is not counted."""
+    attn = 12 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.dh
+    return 6.0 * n_params * b * s + attn
+
+
+def _lm_train_full_width() -> None:
+    """Phase 10a: llama3.2-1b trained at its published widths."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import make_optimizer, tree_map
+    cfg = get_config(LM_FULL)
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    assert (cfg.optimizer, cfg.remat, cfg.microbatches) == ("adamw", "full", 1)
+    assert s == SHAPES["train_4k"].seq_len and s > 2 * cfg.attn_chunk
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    opt = make_optimizer(cfg.optimizer, lr=3e-3)
+    state = opt.init(params)
+    step = make_lm_train_step(lm, opt)
+    stream = TokenStream(cfg.vocab, b, s, seed=0)
+    losses, gnorms, step_ms = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        batch = _lm_batch(stream, "cuda")
+        (params, state, m), ms = _event_ms(lambda: step(params, state, batch))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append(ms)
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert losses[-1] < losses[0], losses
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[1:])
+    flops = _lm_flops(cfg, n_params, b, s)
+    print(f"phase 10a {LM_FULL} training at published widths ({n_params} "
+          f"parameters, remat {cfg.remat}, AdamW lr 3e-3, TokenStream seed "
+          f"0), {b}x{s} tokens per step, {cfg.n_layers} layers x "
+          f"{s // cfg.attn_chunk} KV chunks of {cfg.attn_chunk}: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + " ".join(f"{x:.3f}" for x in gnorms))
+    print(f"phase 10a step ms (synchronised; the first, with the allocator's "
+          f"warm-up, {step_ms[0]:.1f}): median of steps 2-{LM_TRAIN_STEPS} "
+          f"{med:.1f} (min {min(step_ms[1:]):.1f}, max {max(step_ms[1:]):.1f}"
+          f"), {b * s / med * 1e3:.0f} tokens/s; model FLOPs per step "
+          f"{flops:.4e} (6·N·tokens + attention), {flops / (med / 1e3):.4e} "
+          f"FLOP/s, {flops / (med / 1e3) / BF16_FLOPS_PER_S:.4f} of the "
+          f"bf16 dense peak ({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s); peak "
+          f"memory allocated {peak} bytes")
+
+    # the optimizer's update alone, on gradients of the parameters' shapes
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    upd_ms = _event_ms(lambda: opt.update(grads, state, params, opt.lr))[1]
+    upd2_ms = _event_ms(lambda: opt.update(grads, state, params, opt.lr))[1]
+    del grads
+    batch = _lm_batch(stream, "cuda")
+    out = []
+    wall, dev, launches, events = _profile_device(
+        lambda: out.append(step(params, state, batch)))
+    busy = ("device time not recorded by the profiler" if dev is None else
+            f"device {dev:.1f} ms in {launches} launches, busy share "
+            f"{dev / wall:.3f}; by kind (ms) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(
+                    _kernel_kinds(events).items(), key=lambda kv: -kv[1]))
+            + "; top kernels " + "; ".join(
+                f"{k[:80]} {ms:.1f} ms x{n}" for k, (ms, n) in sorted(
+                    events.items(), key=lambda kv: -kv[1][0])[:4]))
+    print(f"phase 10a AdamW update alone (1 step over {n_params} parameters,"
+          f" synchronised): {upd_ms:.1f} ms, again {upd2_ms:.1f} ms; "
+          f"profiler, one more train step: wall {wall:.1f} ms, {busy}")
+    assert bool(torch.isfinite(out[0][2]["loss"]))
+
+
+def _lm_train_published_widths() -> None:
+    """Phase 10b: the other families trained at published widths, depth
+    cut; the MoE block's backward twice, bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models import blocks as TB
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import make_optimizer
+    b, s = LM_TRAIN_CUT_BATCH, LM_TRAIN_CUT_SEQ
+    cuts = (("deepseek-v2-lite-16b", {"dense_blocks": 1, "moe_blocks": 2}, 1),
+            ("zamba2-1.2b", {}, 4), ("rwkv6-7b", {"blocks": 2}, 4))
+    for name, prof, n_mb in cuts:
+        cfg = get_config(name)
+        assert cfg.microbatches == n_mb, (name, cfg.microbatches)
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, depth_profile=prof)
+        params = lm.init_params(torch.Generator(device="cuda").manual_seed(1))
+        opt = make_optimizer(cfg.optimizer, lr=3e-3)
+        state = opt.init(params)
+        step = make_lm_train_step(lm, opt)
+        stream = TokenStream(cfg.vocab, b, s, seed=0)
+        losses, ms = [], []
+        for _ in range(LM_TRAIN_CUT_STEPS):
+            batch = _lm_batch(stream, "cuda")
+            (params, state, m), t = _event_ms(
+                lambda: step(params, state, batch))
+            losses.append(float(m["loss"]))
+            ms.append(t)
+            assert bool(torch.isfinite(m["loss"])) and \
+                bool(torch.isfinite(m["grad_norm"])), (name, m)
+        depth = {seg.name: seg.count for seg in lm.segments}
+        extra = ""
+        if cfg.moe is not None:
+            # the full-width MoE block's backward, twice: gathers only
+            lp = {k: v[0].detach().requires_grad_(True)
+                  for k, v in params["moe_blocks"]["moe"].items()}
+            g = torch.Generator(device="cuda").manual_seed(2)
+            h = torch.randn((b, s, cfg.d_model), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            ct = torch.randn(h.shape, generator=g,
+                             device="cuda").to(torch.bfloat16)
+            runs = []
+            for _ in range(2):
+                x = h.detach().requires_grad_(True)
+                out = TB.moe_apply(lp, x, cfg)
+                runs.append(torch.autograd.grad(out, [x, *lp.values()], ct))
+            assert all(torch.equal(u, v) for u, v in zip(*runs))
+            extra = (f"; the MoE block's backward ({b}x{s} tokens, "
+                     f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}) "
+                     f"twice: {len(runs[0])} gradients equal bit for bit")
+        print(f"phase 10b {name} ({cfg.family}, d {cfg.d_model}, depth "
+              f"{depth}, {cfg.optimizer}, {n_mb} microbatch(es), remat "
+              f"{cfg.remat}, {_nbytes(params)} bytes of parameters): "
+              f"{LM_TRAIN_CUT_STEPS} steps of {b}x{s} tokens, losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; step ms " + " ".join(f"{x:.1f}" for x in ms)
+              + f"; peak memory {torch.cuda.max_memory_allocated()} bytes"
+              + extra)
+        del lm, params, state, step
+        torch.cuda.empty_cache()
+
+
+def _lm_train_reduced_on_card() -> None:
+    """Phase 10c: one train step of each of the ten reduced configs on the
+    card against the port on the CPU, with the same parameters (constant
+    leaves moved off their constants) and batch; then AdamW-8bit once;
+    then the training CLI (10d)."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES, reduced_config
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import make_optimizer, tree_map
+
+    def moved(spec, t, gen):
+        # a leaf initialized to a constant (biases, gates, decays, norm
+        # scales) moved off it, as tests/_torch_lm.py does: else a first
+        # update, about lr·sign(g) per entry, is the whole of its value
+        if spec.init == "zeros":
+            return 0.5 * torch.randn(t.shape, generator=gen)
+        if spec.init == "ones":
+            return 1 + 0.1 * torch.randn(t.shape, generator=gen)
+        return t.detach().float()
+
+    def one_step(name, dtype, opt_name=None):
+        cfg = reduced_config(name)
+        cpu, card = LM(cfg, device="cpu"), LM(cfg)
+        gen = torch.Generator().manual_seed(0)
+        pc = cpu.init_params(gen)
+        pc = tree_map(lambda sp, t: moved(sp, t, gen).to(dtype),
+                      cpu.params_spec(), pc)
+        pg = tree_map(lambda t: t.to("cuda"), pc)
+        b = max(2, cfg.microbatches)
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, 64), generator=g),
+                 "loss_mask": torch.ones(b, 64)}
+        if cfg.family in ("vlm", "encdec"):
+            batch["memory"] = (torch.randn(
+                (b, cfg.frontend_tokens or 16, cfg.d_model), generator=g)
+                * 0.05).to(dtype)
+        outs = []
+        for lm, params in ((cpu, pc), (card, pg)):
+            opt = make_optimizer(opt_name or cfg.optimizer)
+            outs.append(make_lm_train_step(lm, opt)(params, opt.init(params),
+                                                    batch))
+        (p_c, _, m_c), (p_g, _, m_g) = outs
+        errs = {k: abs(float(m_c[k]) - float(m_g[k])) / abs(float(m_c[k]))
+                for k in ("loss", "grad_norm")}
+        finite = all(bool(torch.isfinite(t).all())
+                     for _, t in tree_leaves(p_g))
+        if dtype == torch.float32:
+            a, c = dict(tree_leaves(p_c)), dict(tree_leaves(p_g))
+            errs["params"] = max(_norm_rel(c[k].cpu(), a[k]) for k in a)
+        return cfg, errs, finite
+
+    for name in ARCH_NAMES:
+        cfg, e32, fin32 = one_step(name, torch.float32)
+        _, e16, fin16 = one_step(name, torch.bfloat16)
+        tol = _lm_tol(cfg)
+        assert fin32 and fin16 and all(v <= tol for v in e32.values()) and \
+            all(v <= tol for v in e16.values()), (name, e32, e16)
+        print(f"phase 10c {name} ({cfg.family}, {cfg.optimizer}, "
+              f"{cfg.microbatches} microbatch(es)) card vs CPU, one step: "
+              f"f32 loss {e32['loss']:.2e}, grad norm {e32['grad_norm']:.2e},"
+              f" new parameters per leaf in norm <= {e32['params']:.2e}; "
+              f"bf16 loss {e16['loss']:.2e}, grad norm {e16['grad_norm']:.2e}"
+              f" (<= {tol})")
+    cfg, e8, fin8 = one_step(LM_FULL, torch.float32, "adamw8bit")
+    assert fin8 and all(v <= _lm_tol(cfg) for v in e8.values()), e8
+    print(f"phase 10c {LM_FULL} with adamw8bit card vs CPU, one step: f32 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e8.items()))
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, str(root / "examples" / "train_lm_torch.py"),
+         "--arch", LM_FULL, "--steps", "20"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    assert lines[0].startswith(f"{LM_FULL} (reduced):"), lines
+    assert len(steps) == 3 and steps[-1].startswith("step   19"), lines
+    first, last = (float(ln.split()[3]) for ln in (steps[0], steps[-1]))
+    assert last < first, lines
+    print(f"phase 10d train_lm_torch.py --arch {LM_FULL} --steps 20 (a "
+          f"process, {time.time() - t0:.1f} s): {lines[0]}; "
+          + "; ".join(steps))
+
+
+def _phase_lm_train() -> None:
+    """Phase 10: the LM zoo's training path (no kernel of ours runs here:
+    the launch counts stay 0)."""
+    import torch
+    t0 = time.time()
+    _zero_counts()
+    for part in (_lm_train_full_width, _lm_train_published_widths,
+                 _lm_train_reduced_on_card):
+        torch.cuda.empty_cache()    # each part starts from a clean cache
+        part()
+    counts = _read_counts()
+    assert not any(counts.values()), counts
+    print(f"phase 10 time: {time.time() - t0:.1f} s; launches of the four "
+          f"kernels in phase 10: {counts}")
+
+
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm.py:97",
@@ -1863,6 +2162,7 @@ def main() -> int:
                    _phase_distributed(graph, sampler)):
         _add(launches, counts)
     _phase_lm()
+    _phase_lm_train()
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_FILES[name][0],
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],

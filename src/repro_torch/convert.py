@@ -7,8 +7,9 @@ layout and orientation, so conversion is a leaf-for-leaf copy. Pass the
 reference tree with its leaves as numpy arrays (``np.asarray`` of each).
 Historical stores have the same (L, n, d) layout in both packages.
 
-LM parameters and decode caches are nested dicts in both packages, with the
-same keys and stacked layer axes (``repro_torch.models.lm.LM``). Their bf16
+LM parameters, decode caches and optimizer states are nested dicts in both
+packages, with the same keys and stacked layer axes
+(``repro_torch.models.lm.LM``, ``repro_torch.optim``). Their bf16
 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which torch cannot take
 directly; they pass through float32, which holds every bf16 value exactly.
 """
@@ -73,7 +74,8 @@ def state_from_reference(h, v, device=None) -> HistoricalState:
         v=None if v is None else torch.tensor(np.asarray(v), device=dev))
 
 
-_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "int8": torch.int8, "int32": torch.int32}
 
 
 def _tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -124,3 +126,32 @@ def lm_caches_from_reference(tree, device=None) -> dict:
     return _unflatten({p: _tensor(v, _TORCH_DTYPES[np.asarray(v).dtype.name],
                                   dev)
                        for p, v in tree_leaves(tree)})
+
+
+def lm_opt_state_from_reference(lm: LM, opt_name: str, state) -> dict:
+    """The reference's optimizer state for ``lm``'s parameters under
+    ``make_optimizer(opt_name)`` (leaves as numpy arrays) as the port's, on
+    ``lm.device``, so a port step can continue a reference run. Every leaf
+    keeps its dtype (f32 moments and masters, AdamW-8bit's int8 codes, the
+    int32 step count).
+
+    Raises ValueError if a leaf the port's state has is missing from
+    ``state``, a leaf of ``state`` is left over, or a shape or dtype
+    differs — before converting anything.
+    """
+    from repro_torch.optim import make_optimizer
+    ours = dict(tree_leaves(make_optimizer(opt_name).init(
+        lm.abstract_params())))
+    theirs = {p: np.asarray(v) for p, v in tree_leaves(state)}
+    missing = sorted(map(str, set(ours) - set(theirs)))
+    extra = sorted(map(str, set(theirs) - set(ours)))
+    if missing or extra:
+        raise ValueError(f"optimizer states differ: missing {missing}, "
+                         f"left over {extra}")
+    for p, t in ours.items():
+        got = (tuple(theirs[p].shape), _TORCH_DTYPES.get(theirs[p].dtype.name))
+        if got != (tuple(t.shape), t.dtype):
+            raise ValueError(f"optimizer state {p}: reference {got} != "
+                             f"{(tuple(t.shape), t.dtype)}")
+    return _unflatten({p: _tensor(theirs[p], t.dtype, lm.device)
+                       for p, t in ours.items()})

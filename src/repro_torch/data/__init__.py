@@ -1,4 +1,6 @@
-"""Data-loading layer: the async subgraph pipeline."""
+"""Data-loading layer: the synthetic token stream and the async subgraph
+pipeline."""
 from repro_torch.data.prefetch import Prefetcher, SubgraphPipeline
+from repro_torch.data.tokens import TokenStream
 
-__all__ = ["Prefetcher", "SubgraphPipeline"]
+__all__ = ["TokenStream", "Prefetcher", "SubgraphPipeline"]

@@ -1,2 +1,2 @@
-"""Step builders of the LM zoo (the serving steps; training steps are not
-ported yet)."""
+"""Step builders of the LM zoo: the train step (microbatched gradient
+accumulation, remat, clipped update) and the serving steps."""

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (attention, decode_attention, einsum,
@@ -306,21 +307,99 @@ def moe_capacity(cfg: ArchConfig, s: int) -> int:
     return max(cap, min(k, s * k))
 
 
-def _group_dispatch(p: dict, xg: torch.Tensor, eg: torch.Tensor,
-                    gg: torch.Tensor, cap: int) -> torch.Tensor:
-    """xg (G,s,d), eg (G,s,k), gg (G,s,k) -> MoE output (G,s,d).
+# ------------------------------------------------ gather-mirrored MoE VJPs
+# Dispatch and combine are index bijections (plus drops), so each backward
+# is itself a gather, as in the reference's custom VJPs
+# (repro/models/blocks.py:262-336): the MoE data path does no scatter in
+# either direction, which on the card also makes its backward deterministic.
 
-    Each group stable-sorts its s·k assignments by expert, keeps the first
-    ``cap`` of each expert (the capacity drop), gathers the kept token rows
-    into a (G,E,C,d) buffer, runs the experts and gathers the outputs back.
-    """
-    G, s, d = xg.shape
-    k = eg.shape[-1]
-    E = p["we_gate"].shape[0]
-    sk = s * k
-    dev = xg.device
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (G, n, d) gathered along dim 1 by idx (G, m) -> (G, m, d)."""
+    return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+class _DispatchGather(torch.autograd.Function):
+    """(G,s+1,d) token rows -> (G,E,C,d) expert slots (slot_tok sentinel s,
+    the zero row). Backward: the slots' cotangent gathered back per sorted
+    assignment through (e_c, pos_c) (dropped ones read the zero slot),
+    unsorted by the inverse permutation and summed over the k assignments
+    of each token."""
+
+    @staticmethod
+    def forward(ctx, xpad, slot_tok, e_c, pos_c, inv_order):
+        ctx.save_for_backward(e_c, pos_c, inv_order)
+        ctx.s = xpad.shape[1] - 1
+        gidx = torch.arange(xpad.shape[0], device=xpad.device)[:, None, None]
+        return xpad[gidx, slot_tok]
+
+    @staticmethod
+    def backward(ctx, d_ebuf):
+        e_c, pos_c, inv_order = ctx.saved_tensors
+        G, E, C, dd = d_ebuf.shape
+        s = ctx.s
+        k = e_c.shape[1] // s
+        dpad = F.pad(d_ebuf, (0, 0, 0, 1, 0, 1))             # (G,E+1,C+1,d)
+        gidx = torch.arange(G, device=d_ebuf.device)[:, None]
+        d_rows = dpad[gidx, e_c, pos_c]                       # (G,sk,d)
+        d_x = _rows(d_rows, inv_order).reshape(G, s, k, dd).sum(dim=2)
+        return F.pad(d_x, (0, 0, 0, 1)), None, None, None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    """(G,E+1,C+1,d) expert outputs -> (G,sk,d) per sorted assignment.
+    Backward: the assignments' cotangent gathered into the slots through
+    slot_asn (empty slots read row sk, a zero row)."""
+
+    @staticmethod
+    def forward(ctx, ypad, e_c, pos_c, slot_asn):
+        ctx.save_for_backward(slot_asn)
+        gidx = torch.arange(ypad.shape[0], device=ypad.device)[:, None]
+        return ypad[gidx, e_c, pos_c]
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (slot_asn,) = ctx.saved_tensors
+        G, sk, dd = d_rows.shape
+        dpad = F.pad(d_rows, (0, 0, 0, 1))                    # row sk = zeros
+        gidx = torch.arange(G, device=d_rows.device)[:, None, None]
+        return dpad[gidx, slot_asn], None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    """Rows of (G,n,d) reordered by a permutation idx; backward gathers
+    through the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx):
+        ctx.save_for_backward(inv_idx)
+        return _rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, d):
+        (inv_idx,) = ctx.saved_tensors
+        return _rows(d, inv_idx), None, None
+
+
+class DispatchPlan(NamedTuple):
+    """The index maps of one group-wise dispatch (G groups of s tokens, k
+    assignments each, E experts of ``cap`` slots)."""
+    order: torch.Tensor      # (G,sk) assignments sorted by expert (stable)
+    inv_order: torch.Tensor  # (G,sk) its inverse permutation
+    e_c: torch.Tensor        # (G,sk) expert of each sorted assignment; E if dropped
+    pos_c: torch.Tensor      # (G,sk) its slot; cap if dropped
+    keep: torch.Tensor       # (G,sk) bool, not dropped
+    slot_tok: torch.Tensor   # (G,E+1,cap+1) token of each slot; s if empty
+    slot_asn: torch.Tensor   # (G,E+1,cap+1) sorted assignment of each slot; sk if empty
+
+
+def dispatch_plan(eg: torch.Tensor, num_experts: int, cap: int) -> DispatchPlan:
+    """Plan the dispatch of expert choices ``eg`` (G,s,k): each group
+    stable-sorts its s·k assignments by expert and keeps the first ``cap``
+    of each expert (the capacity drop). The only scatters here build the
+    int slot maps; the dropped assignments all land in slot (E, cap)."""
+    G, s, k = eg.shape
+    E, sk, dev = num_experts, s * k, eg.device
     e_flat = eg.reshape(G, sk)
-    g_flat = gg.reshape(G, sk)
     tok_flat = torch.arange(s, dtype=torch.int64, device=dev).repeat_interleave(
         k)[None].expand(G, sk)
     order = torch.argsort(e_flat, dim=-1, stable=True)
@@ -335,22 +414,41 @@ def _group_dispatch(p: dict, xg: torch.Tensor, eg: torch.Tensor,
     keep = pos < cap
     pos_c = torch.where(keep, pos, cap)
     e_c = torch.where(keep, e_srt, E)
-
     gidx = torch.arange(G, device=dev)[:, None]
     slot_tok = torch.full((G, E + 1, cap + 1), s, dtype=torch.int64, device=dev)
-    slot_tok[gidx, e_c, pos_c] = t_srt       # dropped ones all land in (E, cap)
+    slot_tok[gidx, e_c, pos_c] = t_srt
+    slot_asn = torch.full((G, E + 1, cap + 1), sk, dtype=torch.int64,
+                          device=dev)
+    slot_asn[gidx, e_c, pos_c] = torch.arange(sk, device=dev)[None].expand(G, sk)
+    return DispatchPlan(order, inv_order, e_c, pos_c, keep, slot_tok, slot_asn)
+
+
+def _group_dispatch(p: dict, xg: torch.Tensor, eg: torch.Tensor,
+                    gg: torch.Tensor, cap: int) -> torch.Tensor:
+    """xg (G,s,d), eg (G,s,k), gg (G,s,k) -> MoE output (G,s,d).
+
+    Gathers the kept token rows into a (G,E,C,d) buffer, runs the experts
+    and gathers the outputs back (``dispatch_plan``). Token rows move only
+    by gathers, forward and backward.
+    """
+    G, s, d = xg.shape
+    k = eg.shape[-1]
+    E = p["we_gate"].shape[0]
+    plan = dispatch_plan(eg, E, cap)
     xpad = F.pad(xg, (0, 0, 0, 1))                                # row s = zeros
-    ebuf = xpad[gidx[:, :, None], slot_tok[:, :E, :cap]]         # (G,E,C,d)
+    ebuf = _DispatchGather.apply(xpad, plan.slot_tok[:, :E, :cap], plan.e_c,
+                                 plan.pos_c, plan.inv_order)      # (G,E,C,d)
     ebuf = ebuf.transpose(0, 1).reshape(E, G * cap, d)
     gg_ = torch.bmm(ebuf, p["we_gate"])
     uu = torch.bmm(ebuf, p["we_up"])
     yy = torch.bmm(F.silu(gg_) * uu, p["we_down"])                # (E,G·C,d)
     yb = yy.reshape(E, G, cap, d).transpose(0, 1)
     ypad = F.pad(yb, (0, 0, 0, 1, 0, 1))                          # (G,E+1,C+1,d)
-    y_srt = ypad[gidx, e_c, pos_c]                                # (G,sk,d)
-    g_srt = torch.gather(g_flat, -1, order)
-    y_srt = y_srt * (g_srt * keep)[..., None].to(yy.dtype)
-    y_unsrt = torch.gather(y_srt, 1, inv_order[..., None].expand(G, sk, d))
+    y_srt = _CombineGather.apply(ypad, plan.e_c, plan.pos_c,
+                                 plan.slot_asn)                   # (G,sk,d)
+    g_srt = torch.gather(gg.reshape(G, s * k), -1, plan.order)
+    y_srt = y_srt * (g_srt * plan.keep)[..., None].to(yy.dtype)
+    y_unsrt = _Permute.apply(y_srt, plan.inv_order, plan.order)
     return y_unsrt.reshape(G, s, k, d).sum(dim=2)
 
 
@@ -376,9 +474,16 @@ def moe_apply(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     while b % nchunk:
         nchunk -= 1
     step = b // nchunk
-    out = torch.cat([_group_dispatch(p, x[i:i + step], eidx[i:i + step],
-                                      gates[i:i + step], cap)
-                     for i in range(0, b, step)])
+    # with grad on and more than one chunk, each chunk is rematerialized, as
+    # the reference's lax.map(jax.checkpoint(...)): its dispatch buffers are
+    # recomputed in the backward instead of kept for every chunk
+    remat = nchunk > 1 and torch.is_grad_enabled()
+    outs = []
+    for i in range(0, b, step):
+        args = (p, x[i:i + step], eidx[i:i + step], gates[i:i + step], cap)
+        outs.append(checkpoint(_group_dispatch, *args, use_reentrant=False)
+                    if remat else _group_dispatch(*args))
+    out = torch.cat(outs)
     if mo.num_shared:
         out = out + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
     return h + out.to(h.dtype)

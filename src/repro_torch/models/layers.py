@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -87,12 +88,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if t % kv_chunk:
         raise ValueError(f"attention: T={t} is not a multiple of "
                          f"kv_chunk={kv_chunk}")
-    m = torch.full((b, h, sq), NEG_INF, dtype=F32, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=F32, device=q.device)
-    acc = torch.zeros((b, h, sq, dhv), dtype=F32, device=q.device)
-    for c0 in range(0, t, kv_chunk):
-        kc = k[:, c0:c0 + kv_chunk]
-        vc = v[:, c0:c0 + kv_chunk]
+
+    def body(m, l, acc, kc, vc, c0: int):
         logits = einsum("bshd,bthd->bhst", qs, kc.float())
         if causal:
             k_pos = c0 + torch.arange(kv_chunk, device=q.device)
@@ -101,10 +98,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_new = torch.maximum(m, logits.amax(-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + einsum(
+        l_new = l * corr + p.sum(-1)
+        acc_new = acc * corr[..., None] + einsum(
             "bhst,bthd->bhsd", p.to(vc.dtype), vc).float()
-        m = m_new
+        return m_new, l_new, acc_new
+
+    m = torch.full((b, h, sq), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=F32, device=q.device)
+    acc = torch.zeros((b, h, sq, dhv), dtype=F32, device=q.device)
+    # with grad on, each chunk is rematerialized, as the reference's
+    # jax.checkpoint(body): the backward recomputes the chunk's logits
+    # instead of keeping a (Sq, kv_chunk) score block per chunk
+    remat = torch.is_grad_enabled()
+    for c0 in range(0, t, kv_chunk):
+        args = (m, l, acc, k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk], c0)
+        if remat:
+            m, l, acc = checkpoint(body, *args, use_reentrant=False)
+        else:
+            m, l, acc = body(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
@@ -130,10 +141,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """Row gather whose backward adds the cotangent into zeros of the
+    embedding's shape and dtype, as the reference's ``_embed_bwd``: no f32
+    (vocab, d) buffer. Duplicate ids sum in that dtype, in index order on
+    the CPU and by atomics in no fixed order on the card."""
+
+    @staticmethod
+    def forward(ctx, embed: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.embed_shape, ctx.embed_dtype = embed.shape, embed.dtype
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, dh: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        demb = torch.zeros(ctx.embed_shape, dtype=ctx.embed_dtype,
+                           device=dh.device)
+        demb.index_add_(0, tokens.reshape(-1),
+                        dh.reshape(-1, dh.shape[-1]).to(ctx.embed_dtype))
+        return demb, None
+
+
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding row gather (forward only: the reference's bf16
-    scatter-add backward is not ported yet)."""
-    return embed[tokens]
+    """Embedding row gather with the reference's custom backward: the
+    cotangent is scatter-added in the embedding dtype (bf16)."""
+    return _EmbedLookup.apply(embed, tokens)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

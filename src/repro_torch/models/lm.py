@@ -4,11 +4,15 @@ A model is a list of **segments**, as in the reference (``repro.models.lm``);
 each segment is ``count`` repeats of a block pattern whose per-layer
 parameters are stacked on a leading layer axis. The reference scans a
 segment with ``lax.scan``; here a Python loop runs over the layer views
-``p[i]``. Two build knobs are kept from the reference:
+``p[i]``. ``train_loss`` is differentiable with respect to the parameter
+tree it is given, through the reference's custom backward passes
+(``layers.embed_lookup``, the MoE gathers of ``blocks``) and its remat
+policy (``cfg.remat``: each stacked step checkpointed whole, or keeping
+only its matmul outputs). Two build knobs are kept from the reference:
 
   depth_profile: {segment_name: count} — shrink depth per segment;
   unroll=True — the reference's cost-extraction build: no attention KV
-      chunking and one MoE dispatch chunk.
+      chunking, one MoE dispatch chunk and no remat.
 
 :class:`LM` is an ``nn.Module`` that owns the reference's parameter tree in
 the reference's layout (``params()``), so converting reference parameters is
@@ -25,6 +29,8 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -57,6 +63,24 @@ def _at(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree, count: int) -> list:
+    """The ``count`` per-layer views of a stacked tree, from one ``unbind``
+    per leaf: autograd then stacks the layers' gradients into the leaf's
+    once, instead of adding ``count`` full-size zero-padded copies."""
+    cols = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda c: c[i], cols) for i in range(count)]
+
+
+# the reference's "dots" policy (jax.checkpoint_policies.checkpoint_dots):
+# keep every matmul's output, recompute the rest in the backward
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_DOTS)
+
+
 def _stack_trees(trees: list):
     """Stack a list of same-structured trees on a new leading axis."""
     if isinstance(trees[0], dict):
@@ -87,6 +111,7 @@ class LM(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.unroll = unroll
         self.vpad = _pad_vocab(cfg.vocab)
         self.segments = self._plan_segments(cfg, depth_profile or {})
         if unroll:
@@ -218,6 +243,19 @@ class LM(nn.Module):
         return abstract(self.params_spec())
 
     # ------------------------------------------------------- forward (loss)
+    def _remat(self, fn, *args):
+        """``fn(*args)`` under the reference's remat policy (``LM._remat``)
+        when grad is on: ``"full"`` recomputes the whole stacked step in
+        the backward, ``"dots"`` keeps its matmul outputs and recomputes the
+        rest; ``"none"`` and ``unroll`` keep everything."""
+        if self.cfg.remat == "none" or self.unroll or \
+                not torch.is_grad_enabled():
+            return fn(*args)
+        if self.cfg.remat == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=_save_dots)
+        return checkpoint(fn, *args, use_reentrant=False)
+
     def _block(self, seg: Segment, params: dict, h: torch.Tensor,
                lp: dict, ctx: Ctx) -> torch.Tensor:
         """One stacked step of ``seg`` (the reference's scan body)."""
@@ -259,8 +297,8 @@ class LM(nn.Module):
         for seg in self.segments:
             if seg_filter and seg.name not in seg_filter:
                 continue
-            for i in range(seg.count):
-                h = self._block(seg, params, h, _at(params[seg.name], i), ctx)
+            for lp in _layers(params[seg.name], seg.count):
+                h = self._remat(self._block, seg, params, h, lp, ctx)
         return h
 
     def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -278,8 +316,10 @@ class LM(nn.Module):
     def train_loss(self, params: dict, batch: dict) -> torch.Tensor:
         """batch: tokens (B,S) int, loss_mask (B,S) f32 [, memory (B,T,d)].
 
-        Forward only: the reference's custom backward passes (embedding,
-        MoE gathers) are not ported yet."""
+        Differentiable in ``params``: pass a tree whose leaves require grad
+        (``launch.steps.make_lm_train_step`` does) and call ``backward``
+        or ``torch.autograd.grad`` on the result. The LM's own
+        ``params()`` do not require grad."""
         cfg = self.cfg
         tokens = batch["tokens"]
         bsz, seq = tokens.shape

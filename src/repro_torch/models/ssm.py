@@ -111,6 +111,11 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,cs,cs,H)
     decay = decay.permute(0, 1, 4, 2, 3)                          # (B,nc,H,cs,cs)
     causal = torch.ones(cs, cs, dtype=torch.bool, device=h.device).tril()
+    # the decay above the diagonal (j > i) is positive and can overflow exp;
+    # the where drops those entries, but their gradient would be 0·inf = NaN
+    # (the reference's is). Masking them to -inf first leaves the forward
+    # bit for bit as it was and the gradient finite.
+    decay = decay.masked_fill(~causal, float("-inf"))
     att = torch.where(causal, att * torch.exp(decay), 0.0)
     att = att * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_intra = einsum("bnhij,bnjhp->bnihp", att.to(xh.dtype), xh)

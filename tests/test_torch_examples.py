@@ -74,3 +74,26 @@ def test_serve_decode_torch_smoke():
     assert "prefill 2x8:" in out
     assert "decoded 4 tokens/seq in" in out and "tok/s total" in out
     assert out.count("  seq") == 2
+
+
+def test_train_lm_torch_smoke():
+    """A reduced zamba2 (hybrid: Mamba2 groups and the shared attention
+    block, 4 microbatches) for a few steps on the CPU."""
+    out = _run("train_lm_torch.py", "--device", "cpu", "--arch",
+               "zamba2-1.2b", "--steps", "3", "--batch", "4", "--seq", "32")
+    assert "zamba2-1.2b (reduced):" in out and "optimizer=adamw" in out
+    assert "step    0  loss" in out and "step    2  loss" in out
+    assert "loss should decrease" in out
+
+
+def test_train_lm_torch_refuses_a_batch_the_microbatches_cannot_split():
+    """examples/train_lm.py's default --batch 8 against deepseek-v3's 16
+    microbatches: the reference fails inside a reshape, the port names
+    both numbers."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    res = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "train_lm_torch.py"),
+         "--device", "cpu", "--arch", "deepseek-v3-671b", "--steps", "1"],
+        capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode != 0
+    assert "batch of 8 rows" in res.stderr and "microbatches=16" in res.stderr

@@ -528,3 +528,64 @@ def test_resident_kernels_serve_the_streaming_logits(cuda):
         assert (min(resident) > 0) == (stream is False), resident
         out[stream] = [r.logits for r in rs]
     assert all(np.array_equal(a, b) for a, b in zip(out[False], out[True]))
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "zamba2-1.2b"])
+def test_lm_train_step_on_gpu_matches_cpu(cuda, name):
+    """One ``make_lm_train_step`` step of a reduced arch with its own
+    optimizer and microbatches, on the card against the CPU from the same
+    bf16 parameters and batch: loss and gradient norm within the family
+    tolerance of tests/test_lm_archs.py:14, new parameters finite."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_lm_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.models.spec import tree_leaves as lm_leaves
+    from repro_torch.optim import make_optimizer
+    tol = {"moe": 0.12, "hybrid": 0.05}.get(reduced_config(name).family, 0.02)
+    cfg = reduced_config(name)
+    cpu = LM(cfg, device="cpu")
+    pc = cpu.init_params(torch.Generator().manual_seed(0))
+    card = LM(cfg, device=cuda)
+    pg = card.load_params(tree_map(lambda t: t.detach().to(cuda), pc))
+    b = max(2, cfg.microbatches)
+    toks = torch.randint(0, cfg.vocab, (b, 64),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "loss_mask": torch.ones(b, 64)}
+    out = []
+    for lm, params in ((cpu, pc), (card, pg)):
+        opt = make_optimizer(cfg.optimizer)
+        out.append(make_lm_train_step(lm, opt)(params, opt.init(params),
+                                               batch))
+    (_, _, mc), (pn, _, mg) = out
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mc[k]) - float(mg[k])) <= tol * abs(float(mc[k])), k
+    assert all(t.device.type == card.device.type and
+               bool(torch.isfinite(t).all())
+               for _, t in lm_leaves(pn))
+
+
+def test_moe_block_backward_is_deterministic_on_gpu(cuda):
+    """The MoE data path moves rows by gathers only, forward and backward
+    (the reference's custom VJPs), so two backward passes of a full-width
+    dispatch give equal bits on the card; the embedding's scatter-add is
+    the one backward with atomics, and it is not in this block."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as TB
+    from repro_torch.models.spec import materialize
+    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=16))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = materialize(TB.moe_spec(cfg), gen, cuda)
+    h = torch.randn((4, 256, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    ct = torch.randn(h.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        x = h.detach().requires_grad_(True)
+        out = TB.moe_apply(leaves, x, cfg)
+        grads.append(torch.autograd.grad(out, [x, *leaves.values()], ct))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
