@@ -128,12 +128,25 @@ which raises on failure:
      norm and every new parameter leaf, in bf16 the loss and gradient
      norm, within the per-family tolerance; AdamW-8bit once. 10d:
      examples/train_lm_torch.py --steps 20 as a process, its loss falling.
+ 11. The LM on a device mesh (no kernel of ours; the counts stay 0). 11a:
+     10a's configuration through ``launch.steps.build_cell`` on an NCCL
+     ``DeviceMesh`` of one rank, (1, 1) over (data, model): parameters,
+     AdamW state and batch as DTensors placed by the reference's rules, the
+     activation constraints registered; 3 steps; the first loss within
+     rtol 1e-4 of 10a's (bit-equality expected), the first grad norm within
+     1e-3; step ms and peak memory beside 10a's. 11b:
+     examples/multipod_dryrun_torch.py as three processes at once: llama3.2-1b
+     train_4k on the 16x16 and 2x16x16 production meshes and 10a's
+     configuration on a mesh of one, each traced on meta tensors over a
+     fake process group; argument, output, peak and collective bytes,
+     FLOPs and trace time per device; the predicted peak beside 11a's
+     measured one, the FLOPs beside 10a's model FLOPs.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
 shapes, the SpMM ones as a whole layer, launches summed over phases 3-8
-(the CLIs of 6d, 7, 9c and 10d run in processes of their own and are not
-counted; phases 9 and 10 launch none of these kernels),
+(the CLIs of 6d, 7, 9c, 10d and 11b run in processes of their own and
+are not counted; phases 9, 10 and 11 launch none of these kernels),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -1841,6 +1854,7 @@ def _phase_lm() -> None:
 
 
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense, tensor cores
+LM10A: dict = {}   # 10a's first loss and grad norm, step ms, peak (phase 11)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 4096, 10
 LM_TRAIN_CUT_BATCH, LM_TRAIN_CUT_SEQ, LM_TRAIN_CUT_STEPS = 4, 512, 3
 
@@ -1893,6 +1907,8 @@ def _lm_train_full_width() -> None:
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(step_ms[1:])
     flops = _lm_flops(cfg, n_params, b, s)
+    LM10A.update(loss0=losses[0], gnorm0=gnorms[0], step_ms=med, peak=peak,
+                 n_params=n_params, flops=flops)
     print(f"phase 10a {LM_FULL} training at published widths ({n_params} "
           f"parameters, remat {cfg.remat}, AdamW lr 3e-3, TokenStream seed "
           f"0), {b}x{s} tokens per step, {cfg.n_layers} layers x "
@@ -2100,6 +2116,140 @@ def _phase_lm_train() -> None:
           f"kernels in phase 10: {counts}")
 
 
+LM_SHARDED_STEPS = 3
+
+
+def _lm_train_one_rank_mesh() -> None:
+    """Phase 11a: 10a's configuration through ``build_cell`` on an NCCL
+    mesh of one rank: parameters, optimizer state and batch are DTensors,
+    the activation constraints registered."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.sharding import distribute
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import spec
+    from repro_torch.optim import make_optimizer
+    cfg = get_config(LM_FULL)
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'init'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        opt = make_optimizer(cfg.optimizer, lr=3e-3)
+        lm, step, _, (p_sh, s_sh, b_sh) = build_cell(
+            cfg, ShapeConfig("train_4k", "train", s, b), mesh, opt=opt)
+        torch.cuda.reset_peak_memory_stats()
+        # 10a's parameters (the same generator and seed), then placed
+        params = spec.materialize(
+            lm.params_spec(), torch.Generator(device="cuda").manual_seed(0),
+            "cuda", p_sh, mesh)
+        state = spec.materialize(opt.state_spec(lm.params_spec()),
+                                 torch.Generator(device="cuda"), "cuda", s_sh,
+                                 mesh)
+        stream = TokenStream(cfg.vocab, b, s, seed=0)
+        losses, gnorms, step_ms = [], [], []
+        for _ in range(LM_SHARDED_STEPS):
+            batch = distribute(_lm_batch(stream, "cuda"), b_sh, mesh)
+            (params, state, m), ms = _event_ms(
+                lambda: step(params, state, batch))
+            losses.append(float(m["loss"].full_tensor()))
+            gnorms.append(float(m["grad_norm"].full_tensor()))
+            step_ms.append(ms)
+        assert all(isinstance(t, DTensor) for _, t in
+                   spec.tree_leaves(params)), "parameters left the mesh"
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    loss_rel = abs(losses[0] - LM10A["loss0"]) / abs(LM10A["loss0"])
+    gn_rel = abs(gnorms[0] - LM10A["gnorm0"]) / abs(LM10A["gnorm0"])
+    med = statistics.median(step_ms[1:])
+    LM10A["mesh_peak"] = peak
+    print(f"phase 11a {LM_FULL} train step through build_cell on an NCCL "
+          f"mesh (1, 1) over (data, model), parameters/state/batch DTensors,"
+          f" {b}x{s} tokens, {LM_SHARDED_STEPS} steps: losses "
+          + " ".join(f"{x:.6f}" for x in losses) + "; grad norms "
+          + " ".join(f"{x:.6f}" for x in gnorms)
+          + f"; first loss {losses[0]!r} vs 10a {LM10A['loss0']!r} (rel "
+          f"{loss_rel:.3g}, bit-equal {losses[0] == LM10A['loss0']}; rtol "
+          f"1e-4), first grad norm {gnorms[0]!r} vs 10a "
+          f"{LM10A['gnorm0']!r} (rel {gn_rel:.3g}; <= 1e-3)")
+    print(f"phase 11a step ms (synchronised; the first {step_ms[0]:.1f}): "
+          f"median of steps 2-{LM_SHARDED_STEPS} {med:.1f} vs 10a "
+          f"{LM10A['step_ms']:.1f}; peak memory allocated {peak} bytes vs "
+          f"10a {LM10A['peak']}")
+    assert loss_rel <= 1e-4, (losses[0], LM10A["loss0"])
+    assert gn_rel <= 1e-3, (gnorms[0], LM10A["gnorm0"])
+
+
+def _dryrun_cell(*flags: str) -> dict:
+    """examples/multipod_dryrun_torch.py as a process; its JSON result."""
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    res = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "examples"
+                             / "multipod_dryrun_torch.py"), "--json", *flags],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _lm_dryrun() -> None:
+    """Phase 11b: the dry run of llama3.2-1b's train_4k on both production
+    meshes and of 10a's configuration on a mesh of one, three processes at
+    once; the predicted peak and FLOPs beside 11a's and 10a's."""
+    import concurrent.futures as cf
+    base = ("--arch", LM_FULL, "--shape", "train_4k")
+    cells = {"16x16": base + ("--single-pod",), "2x16x16": base,
+             "1x1 (10a)": base + ("--mesh", "1x1", "--batch",
+                                  str(LM_TRAIN_BATCH))}
+    with cf.ThreadPoolExecutor(len(cells)) as ex:
+        futs = {tag: ex.submit(_dryrun_cell, *flags)
+                for tag, flags in cells.items()}
+        out = {tag: f.result() for tag, f in futs.items()}
+    for tag, r in out.items():
+        assert r["status"] == "ok", r
+        mem, coll = r["memory"], r["collectives"]
+        print(f"phase 11b dry run {LM_FULL} train_4k on {tag} (batch "
+              f"{r['global_batch']}): argument {mem['argument_bytes']} B, "
+              f"output {mem['output_bytes']} B, peak {mem['peak_bytes']} B "
+              f"a device; flops {r['flops']:.4e} a device; collectives "
+              + ", ".join(f"{k} {v}" for k, v in sorted(coll.items()))
+              + f"; traced in {r['step_s']:.1f} s (built {r['build_s']:.1f})")
+    one = out["1x1 (10a)"]
+    print(f"phase 11b 10a's configuration: dry-run peak "
+          f"{one['memory']['peak_bytes']} B vs 11a's measured "
+          f"{LM10A['mesh_peak']} B (10a's plain step {LM10A['peak']} B), "
+          f"ratio {one['memory']['peak_bytes'] / LM10A['mesh_peak']:.3f}; "
+          f"dry-run FLOPs {one['flops']:.4e} vs _lm_flops "
+          f"{LM10A['flops']:.4e} (6·N·tokens + attention, no remat), ratio "
+          f"{one['flops'] / LM10A['flops']:.3f}")
+
+
+def _phase_lm_sharded() -> None:
+    """Phase 11: the LM on a device mesh (11a) and the dry run (11b); no
+    kernel of ours runs here."""
+    import torch
+    t0 = time.time()
+    _zero_counts()
+    torch.cuda.empty_cache()
+    _lm_train_one_rank_mesh()
+    torch.cuda.empty_cache()
+    _lm_dryrun()
+    counts = _read_counts()
+    assert not any(counts.values()), counts
+    print(f"phase 11 time: {time.time() - t0:.1f} s; launches of the four "
+          f"kernels in phase 11: {counts}")
+
+
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm.py:97",
@@ -2163,6 +2313,7 @@ def main() -> int:
         _add(launches, counts)
     _phase_lm()
     _phase_lm_train()
+    _phase_lm_sharded()
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_FILES[name][0],
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],

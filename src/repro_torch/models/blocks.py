@@ -8,7 +8,9 @@ Each block family provides, as in the reference (``repro.models.blocks``):
 
 Caches are stored in bf16; MLA caches stay compressed (rank + rope dims).
 The decode functions write the new position into the cache tensors they are
-given, in place, and return those same tensors.
+given, in place, and return those same tensors (on a mesh, into the local
+shard that holds the position). The reference's sharding constraints are
+kept at its sites (``dist.sharding``).
 """
 from __future__ import annotations
 
@@ -17,9 +19,14 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (concat_rows, current_mesh, dp_axis_size,
+                                       mesh_tensor, placements, shard_act,
+                                       shard_res)
+from repro_torch.dist.sharding import along, pad as pad_
 from repro_torch.models.layers import (attention, decode_attention, einsum,
                                        rms_norm, rope, swiglu, BF16, F32)
 from repro_torch.models.spec import PSpec
@@ -59,6 +66,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     v = einsum("bsd,dhq->bshq", x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = shard_act(q, "dp", None, "model", None)
+    k = shard_act(k, "dp", None, "model", None)
+    v = shard_act(v, "dp", None, "model", None)
     return q, k, v
 
 
@@ -73,7 +83,8 @@ def _self_attn(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
     q = rope(q, ctx.positions, cfg.rope_theta)
     k = rope(k, ctx.positions, cfg.rope_theta)
     o = attention(q, k, v, causal=causal, kv_chunk=_attn_chunk(cfg, h.shape[1]))
-    return _out_proj(h, o, p["wo"]), k, v
+    o = shard_act(o, "dp", None, "model", None)
+    return shard_res(_out_proj(h, o, p["wo"])), k, v
 
 
 def attn_apply(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
@@ -90,9 +101,8 @@ def attn_cache_spec(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
 
 def _pad_seq(x: torch.Tensor, max_seq: int) -> torch.Tensor:
     """Zero-pad dim 1 to ``max_seq`` and cast to the cache dtype (bf16)."""
-    out = x.new_zeros((x.shape[0], max_seq, *x.shape[2:]), dtype=BF16)
-    out[:, :x.shape[1]] = x
-    return out
+    pad = [0, 0] * (x.ndim - 2) + [0, max_seq - x.shape[1]]
+    return pad_(x, pad).to(BF16)
 
 
 def attn_prefill_cache(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
@@ -103,8 +113,30 @@ def attn_prefill_cache(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig,
 
 
 def _decode_positions(h: torch.Tensor, length) -> torch.Tensor:
-    return torch.full(h.shape[:2], int(length), dtype=torch.int32,
-                      device=h.device)
+    return mesh_tensor(h, lambda s: torch.full(s, int(length),
+                                               dtype=torch.int32,
+                                               device=h.device), h.shape[:2])
+
+
+def _write_at(cache: torch.Tensor, n: int, new: torch.Tensor) -> None:
+    """``cache[:, n:n+1] = new`` in place. A DTensor cache whose position
+    axis is sharded is written in its local shard: only the rank holding
+    position ``n`` writes, so nothing is gathered."""
+    if not isinstance(cache, DTensor):
+        cache[:, n:n + 1] = new
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    # the new row: the cache's layout with the (length-1) position axis whole
+    plc = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+           for p in cache.placements]
+    row = new.to(cache.dtype).redistribute(mesh, plc).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    start = n - offset[1]
+    if 0 <= start < shape[1]:
+        cache.to_local()[:, start:start + 1] = row
 
 
 def attn_decode(p: dict, h: torch.Tensor, cache: dict, ctx: Ctx,
@@ -116,8 +148,8 @@ def attn_decode(p: dict, h: torch.Tensor, cache: dict, ctx: Ctx,
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     n = int(ctx.length)
-    cache["k"][:, n:n + 1] = k
-    cache["v"][:, n:n + 1] = v
+    _write_at(cache["k"], n, k)
+    _write_at(cache["v"], n, v)
     o = decode_attention(q, cache["k"], cache["v"], n + 1)
     return _out_proj(h, o, p["wo"]), cache
 
@@ -208,14 +240,20 @@ def _mla_forward(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig):
     m = cfg.mla
     x = rms_norm(h, p["ln"], cfg.norm_eps)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, ctx.positions)
-    k_nope = einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-    v = einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(
-        *k_rope.shape[:2], cfg.n_heads, m.rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    k_nope = shard_act(einsum("bsr,rhk->bshk", c_kv, p["w_uk"]),
+                       "dp", None, "model", None)
+    v = shard_act(einsum("bsr,rhk->bshk", c_kv, p["w_uv"]),
+                  "dp", None, "model", None)
+    labels = ("dp", None, "model", None)
+    k = concat_rows([k_nope, k_rope[:, :, None].expand(
+        *k_rope.shape[:2], cfg.n_heads, m.rope_head_dim)], axis=-1,
+        labels=labels)
+    q = shard_act(concat_rows([q_nope, q_rope], axis=-1, labels=labels),
+                  *labels)
     o = attention(q, k, v, causal=True, kv_chunk=_attn_chunk(cfg, h.shape[1]),
                   softmax_scale=_mla_scale(cfg))
-    return _out_proj(h, o, p["wo"]), c_kv, k_rope
+    o = shard_act(o, *labels)
+    return shard_res(_out_proj(h, o, p["wo"])), c_kv, k_rope
 
 
 def mla_apply(p: dict, h: torch.Tensor, ctx: Ctx, cfg: ArchConfig) -> torch.Tensor:
@@ -248,15 +286,15 @@ def mla_decode(p: dict, h: torch.Tensor, cache: dict, ctx: Ctx,
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, pos)
     n = int(ctx.length)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-    c_cache[:, n:n + 1] = c_kv_new
-    r_cache[:, n:n + 1] = k_rope_new
+    _write_at(c_cache, n, c_kv_new)
+    _write_at(r_cache, n, k_rope_new)
     # absorb W_uk into q: q_eff (B,S,H,r)
     q_eff = einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
     logits = (einsum("bshr,btr->bhst", q_eff.float(), c_cache.float())
               + einsum("bshk,btk->bhst", q_rope.float(), r_cache.float())
               ) * float(_mla_scale(cfg))
     t = c_cache.shape[1]
-    posi = torch.arange(t, device=h.device)
+    posi = mesh_tensor(h, lambda s: torch.arange(t, device=h.device), (t,))
     logits = torch.where((posi < n + 1)[None, None, None], logits, -1e30)
     pattn = torch.softmax(logits, dim=-1)
     o_c = einsum("bhst,btr->bshr", pattn.to(c_cache.dtype), c_cache)
@@ -278,7 +316,7 @@ def mlp_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> dict:
 
 def mlp_apply(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rms_norm(h, p["ln"], cfg.norm_eps)
-    return h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return shard_res(h + swiglu(x, p["w_gate"], p["w_up"], p["w_down"]))
 
 
 def moe_spec(cfg: ArchConfig) -> dict:
@@ -312,10 +350,18 @@ def moe_capacity(cfg: ArchConfig, s: int) -> int:
 # is itself a gather, as in the reference's custom VJPs
 # (repro/models/blocks.py:262-336): the MoE data path does no scatter in
 # either direction, which on the card also makes its backward deterministic.
+# Every gather is batched over the group axis G (``torch.gather`` along dim
+# 1), so on a mesh it stays local to each group's data shard.
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (G, n, d) gathered along dim 1 by idx (G, m) -> (G, m, d)."""
     return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+def _slots(x: torch.Tensor, e: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """x (G, E', C', d) read at slots (e, pos) (G, m) -> (G, m, d)."""
+    G, E1, C1, dd = x.shape
+    return _rows(x.reshape(G, E1 * C1, dd), e * C1 + pos)
 
 
 class _DispatchGather(torch.autograd.Function):
@@ -329,8 +375,9 @@ class _DispatchGather(torch.autograd.Function):
     def forward(ctx, xpad, slot_tok, e_c, pos_c, inv_order):
         ctx.save_for_backward(e_c, pos_c, inv_order)
         ctx.s = xpad.shape[1] - 1
-        gidx = torch.arange(xpad.shape[0], device=xpad.device)[:, None, None]
-        return xpad[gidx, slot_tok]
+        G, E, C = slot_tok.shape
+        return _rows(xpad, slot_tok.reshape(G, E * C)).reshape(
+            G, E, C, xpad.shape[-1])
 
     @staticmethod
     def backward(ctx, d_ebuf):
@@ -338,11 +385,10 @@ class _DispatchGather(torch.autograd.Function):
         G, E, C, dd = d_ebuf.shape
         s = ctx.s
         k = e_c.shape[1] // s
-        dpad = F.pad(d_ebuf, (0, 0, 0, 1, 0, 1))             # (G,E+1,C+1,d)
-        gidx = torch.arange(G, device=d_ebuf.device)[:, None]
-        d_rows = dpad[gidx, e_c, pos_c]                       # (G,sk,d)
+        dpad = pad_(d_ebuf, (0, 0, 0, 1, 0, 1))             # (G,E+1,C+1,d)
+        d_rows = shard_act(_slots(dpad, e_c, pos_c), "dp", None, None)
         d_x = _rows(d_rows, inv_order).reshape(G, s, k, dd).sum(dim=2)
-        return F.pad(d_x, (0, 0, 0, 1)), None, None, None, None
+        return pad_(d_x, (0, 0, 0, 1)), None, None, None, None
 
 
 class _CombineGather(torch.autograd.Function):
@@ -353,16 +399,17 @@ class _CombineGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ypad, e_c, pos_c, slot_asn):
         ctx.save_for_backward(slot_asn)
-        gidx = torch.arange(ypad.shape[0], device=ypad.device)[:, None]
-        return ypad[gidx, e_c, pos_c]
+        return _slots(ypad, e_c, pos_c)
 
     @staticmethod
     def backward(ctx, d_rows):
         (slot_asn,) = ctx.saved_tensors
         G, sk, dd = d_rows.shape
-        dpad = F.pad(d_rows, (0, 0, 0, 1))                    # row sk = zeros
-        gidx = torch.arange(G, device=d_rows.device)[:, None, None]
-        return dpad[gidx, slot_asn], None, None, None
+        dpad = pad_(d_rows, (0, 0, 0, 1))                    # row sk = zeros
+        _, E1, C1 = slot_asn.shape
+        d_ypad = _rows(dpad, slot_asn.reshape(G, E1 * C1)).reshape(
+            G, E1, C1, dd)
+        return shard_act(d_ypad, "dp", None, None, None), None, None, None
 
 
 class _Permute(torch.autograd.Function):
@@ -399,9 +446,14 @@ def dispatch_plan(eg: torch.Tensor, num_experts: int, cap: int) -> DispatchPlan:
     int slot maps; the dropped assignments all land in slot (E, cap)."""
     G, s, k = eg.shape
     E, sk, dev = num_experts, s * k, eg.device
+
+    def made(make, shape, labels=None):
+        return mesh_tensor(eg, make, shape, labels)
     e_flat = eg.reshape(G, sk)
-    tok_flat = torch.arange(s, dtype=torch.int64, device=dev).repeat_interleave(
-        k)[None].expand(G, sk)
+    tok_flat = made(lambda sh: torch.arange(
+        s, dtype=torch.int64, device=dev).repeat_interleave(k), (sk,))
+    tok_flat = tok_flat[None].expand(G, sk)
+    asn = made(lambda sh: torch.arange(sk, device=dev), (sk,))[None]
     order = torch.argsort(e_flat, dim=-1, stable=True)
     inv_order = torch.argsort(order, dim=-1, stable=True)
     e_srt = torch.gather(e_flat, -1, order)
@@ -409,17 +461,19 @@ def dispatch_plan(eg: torch.Tensor, num_experts: int, cap: int) -> DispatchPlan:
     # position within expert, per group
     counts = F.one_hot(e_flat, E).sum(dim=1)                      # (G,E)
     starts = torch.cumsum(counts, dim=-1) - counts
-    pos = (torch.arange(sk, device=dev)[None]
-           - torch.gather(starts, -1, e_srt))
+    pos = asn - torch.gather(starts, -1, e_srt)
     keep = pos < cap
     pos_c = torch.where(keep, pos, cap)
     e_c = torch.where(keep, e_srt, E)
-    gidx = torch.arange(G, device=dev)[:, None]
-    slot_tok = torch.full((G, E + 1, cap + 1), s, dtype=torch.int64, device=dev)
-    slot_tok[gidx, e_c, pos_c] = t_srt
-    slot_asn = torch.full((G, E + 1, cap + 1), sk, dtype=torch.int64,
-                          device=dev)
-    slot_asn[gidx, e_c, pos_c] = torch.arange(sk, device=dev)[None].expand(G, sk)
+    slot = e_c * (cap + 1) + pos_c                                # (G,sk)
+
+    def slot_map(fill, src):
+        base = made(lambda sh: torch.full(sh, fill, dtype=torch.int64,
+                                          device=dev),
+                    (G, (E + 1) * (cap + 1)), ("dp", None))
+        return torch.scatter(base, 1, slot, src).reshape(G, E + 1, cap + 1)
+    slot_tok = slot_map(s, t_srt)
+    slot_asn = slot_map(sk, asn.expand(G, sk))
     return DispatchPlan(order, inv_order, e_c, pos_c, keep, slot_tok, slot_asn)
 
 
@@ -435,55 +489,109 @@ def _group_dispatch(p: dict, xg: torch.Tensor, eg: torch.Tensor,
     k = eg.shape[-1]
     E = p["we_gate"].shape[0]
     plan = dispatch_plan(eg, E, cap)
-    xpad = F.pad(xg, (0, 0, 0, 1))                                # row s = zeros
-    ebuf = _DispatchGather.apply(xpad, plan.slot_tok[:, :E, :cap], plan.e_c,
-                                 plan.pos_c, plan.inv_order)      # (G,E,C,d)
-    ebuf = ebuf.transpose(0, 1).reshape(E, G * cap, d)
-    gg_ = torch.bmm(ebuf, p["we_gate"])
-    uu = torch.bmm(ebuf, p["we_up"])
-    yy = torch.bmm(F.silu(gg_) * uu, p["we_down"])                # (E,G·C,d)
-    yb = yy.reshape(E, G, cap, d).transpose(0, 1)
-    ypad = F.pad(yb, (0, 0, 0, 1, 0, 1))                          # (G,E+1,C+1,d)
-    y_srt = _CombineGather.apply(ypad, plan.e_c, plan.pos_c,
-                                 plan.slot_asn)                   # (G,sk,d)
+    xpad = pad_(xg, (0, 0, 0, 1))                                # row s = zeros
+    ebuf = shard_act(_DispatchGather.apply(
+        xpad, plan.slot_tok[:, :E, :cap], plan.e_c, plan.pos_c,
+        plan.inv_order), "dp", None, None, None)                  # (G,E,C,d)
+    # the expert-parallel exchange: slice E per model rank, then a
+    # layout-preserving transpose to (E: model, G: dp)
+    ebuf = shard_act(ebuf, "dp", "model", None, None)
+    ebuf = shard_act(ebuf.transpose(0, 1), "model", "dp", None, None)
+    gg_ = einsum("egcd,edf->egcf", ebuf, p["we_gate"])
+    uu = einsum("egcd,edf->egcf", ebuf, p["we_up"])
+    yy = einsum("egcf,efd->egcd", F.silu(gg_) * uu, p["we_down"])  # (E,G,C,d)
+    yb = shard_act(yy.transpose(0, 1), "dp", None, None, None)
+    ypad = pad_(yb, (0, 0, 0, 1, 0, 1))                          # (G,E+1,C+1,d)
+    y_srt = shard_act(_CombineGather.apply(ypad, plan.e_c, plan.pos_c,
+                                           plan.slot_asn),
+                      "dp", None, None)                           # (G,sk,d)
     g_srt = torch.gather(gg.reshape(G, s * k), -1, plan.order)
     y_srt = y_srt * (g_srt * plan.keep)[..., None].to(yy.dtype)
-    y_unsrt = _Permute.apply(y_srt, plan.inv_order, plan.order)
+    y_unsrt = shard_act(_Permute.apply(y_srt, plan.inv_order, plan.order),
+                        "dp", None, None)
     return y_unsrt.reshape(G, s, k, d).sum(dim=2)
+
+
+def _row_layout(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its rows over dp (when they divide) and every other
+    dim whole; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    labels = ("dp",) + (None,) * (t.ndim - 1)
+    return t.redistribute(t.device_mesh,
+                          placements(t.device_mesh, t.shape, labels))
+
+
+def _chunk_rows(t: torch.Tensor, n: int) -> list:
+    """``t``'s rows (in the row layout) in ``n`` chunks: chunk i is the
+    i-th contiguous n-th of every dp shard's rows, so splitting moves no
+    data. Off-mesh (one shard) chunk i is rows [i·b/n, (i+1)·b/n), as in
+    the reference; on a mesh the groups are assigned to chunks in another
+    order, which changes nothing, as every group is dispatched alone."""
+    if not isinstance(t, DTensor):
+        return list(t.reshape(n, t.shape[0] // n, *t.shape[1:]).unbind(0))
+    loc = t.to_local()
+    return [DTensor.from_local(c, t.device_mesh, t.placements,
+                               run_check=False)
+            for c in loc.reshape(n, -1, *loc.shape[1:]).unbind(0)]
+
+
+def _join_rows(chunks: list) -> torch.Tensor:
+    """The inverse of :func:`_chunk_rows`."""
+    first = chunks[0]
+    if not isinstance(first, DTensor):
+        return torch.stack(chunks).reshape(-1, *first.shape[1:])
+    loc = torch.stack([c.to_local() for c in chunks])
+    loc = loc.reshape(-1, *loc.shape[2:])
+    return DTensor.from_local(loc, first.device_mesh, first.placements,
+                              run_check=False)
 
 
 def moe_apply(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Group-wise sort-based dropping dispatch, one group per batch row.
 
-    Groups are processed in ``dispatch_chunks`` sequential chunks of batch
-    rows, which bounds the dispatch buffers; a group's result does not
-    depend on the chunking.
+    Groups are processed in sequential chunks of batch rows, which bounds
+    the dispatch buffers; a group's result does not depend on the chunking.
+    The chunk count is the reference's: at most ``dispatch_chunks``, and
+    on a mesh no more than leaves one group per data shard in each chunk.
     """
     mo = cfg.moe
     b, s, d = h.shape
     k = mo.top_k
-    x = rms_norm(h, p["ln"], cfg.norm_eps)
+    # the sequence-parallel -> full-sequence boundary: one gather of S here
+    x = shard_act(rms_norm(h, p["ln"], cfg.norm_eps), "dp", None, None)
     cap = moe_capacity(cfg, s)
 
     logits = einsum("bsd,de->bse", x.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
-    gates, eidx = torch.topk(probs, k, dim=-1, sorted=True)      # (b,s,k)
+    # (on the local rows: topk's backward does not run on DTensors in
+    # every torch release)
+    gates, eidx = along(probs, lambda t: torch.topk(t, k, dim=-1,
+                                                    sorted=True), -1)  # (b,s,k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
-    nchunk = max(1, min(mo.dispatch_chunks, b))
-    while b % nchunk:
+    mesh = current_mesh()
+    ndp = dp_axis_size(mesh) if mesh is not None else 1
+    nchunk = max(1, min(mo.dispatch_chunks, b // max(ndp, 1)))
+    x, eidx, gates = (_row_layout(t) for t in (x, eidx, gates))
+    rows = x.to_local().shape[0] if isinstance(x, DTensor) else b
+    while b % nchunk or rows % nchunk:
         nchunk -= 1
-    step = b // nchunk
-    # with grad on and more than one chunk, each chunk is rematerialized, as
-    # the reference's lax.map(jax.checkpoint(...)): its dispatch buffers are
-    # recomputed in the backward instead of kept for every chunk
-    remat = nchunk > 1 and torch.is_grad_enabled()
-    outs = []
-    for i in range(0, b, step):
-        args = (p, x[i:i + step], eidx[i:i + step], gates[i:i + step], cap)
-        outs.append(checkpoint(_group_dispatch, *args, use_reentrant=False)
-                    if remat else _group_dispatch(*args))
-    out = torch.cat(outs)
+    if nchunk > 1:
+        xr, er, gr = (_chunk_rows(t, nchunk) for t in (x, eidx, gates))
+        # with grad on each chunk is rematerialized, as the reference's
+        # lax.map(jax.checkpoint(...)): its dispatch buffers are recomputed
+        # in the backward instead of kept for every chunk
+        remat = torch.is_grad_enabled()
+        outs = []
+        for i in range(nchunk):
+            args = (p, xr[i], er[i], gr[i], cap)
+            outs.append(checkpoint(_group_dispatch, *args, use_reentrant=False)
+                        if remat else _group_dispatch(*args))
+        out = _join_rows([_row_layout(o) for o in outs])
+    else:
+        out = _group_dispatch(p, x, eidx, gates, cap)
+    out = shard_act(out, "dp", None, None)
     if mo.num_shared:
         out = out + swiglu(x, p["ws_gate"], p["ws_up"], p["ws_down"])
-    return h + out.to(h.dtype)
+    return shard_res(h + out.to(h.dtype))

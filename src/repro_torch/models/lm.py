@@ -34,6 +34,8 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (along, concat_rows, mesh_tensor,
+                                       shard_act, shard_res)
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as S
 from repro_torch.models.blocks import Ctx
@@ -48,6 +50,26 @@ VOCAB_ALIGN = 2048
 
 def _pad_vocab(v: int) -> int:
     return ((v + VOCAB_ALIGN - 1) // VOCAB_ALIGN) * VOCAB_ALIGN
+
+
+def _positions(ref: torch.Tensor, bsz: int, seq: int) -> torch.Tensor:
+    """(bsz, seq) absolute positions on ``ref``'s device and mesh."""
+    return mesh_tensor(ref, lambda s: torch.arange(
+        seq, device=ref.device).expand(bsz, -1), (bsz, seq))
+
+
+def _roll(tokens: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll`` along the sequence (DTensor has no rule for roll in
+    every torch release: on a mesh it runs on the local rows)."""
+    return along(tokens, lambda t: torch.roll(t, shift, dims=1), 1)
+
+
+def _drop_last(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """``mask`` with its last ``n`` columns zeroed."""
+    seq = mask.shape[1]
+    col = mesh_tensor(mask, lambda s: torch.arange(seq, device=mask.device),
+                      (seq,))
+    return torch.where(col < seq - n, mask, 0.0)
 
 
 def _stack(spec_tree, count: int):
@@ -304,12 +326,14 @@ class LM(nn.Module):
     def _logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return einsum("bsd,dv->bsv", h, w)
+        # vocab stays model-sharded: the head's gradient contraction then
+        # gives (d, vpad/n_model) partials, not full (d, vpad) buffers
+        h = shard_act(h, "dp", None, None)
+        return shard_act(einsum("bsd,dv->bsv", h, w), "dp", None, "model")
 
     def _encode(self, params: dict, memory: torch.Tensor,
                 ctx: Ctx) -> torch.Tensor:
-        src_pos = torch.arange(memory.shape[1], device=memory.device).expand(
-            memory.shape[0], -1)
+        src_pos = _positions(memory, memory.shape[0], memory.shape[1])
         return self._backbone(params, memory, ctx._replace(positions=src_pos),
                               seg_filter={"encoder"})
 
@@ -323,9 +347,9 @@ class LM(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         bsz, seq = tokens.shape
-        pos = torch.arange(seq, device=tokens.device).expand(bsz, -1)
+        pos = _positions(tokens, bsz, seq)
         ctx = Ctx(positions=pos, length=0, memory=batch.get("memory"))
-        h = embed_lookup(params["embed"], tokens)
+        h = shard_res(embed_lookup(params["embed"], tokens))
 
         if cfg.family == "encdec":
             ctx = ctx._replace(memory=self._encode(params, batch["memory"], ctx))
@@ -334,24 +358,24 @@ class LM(nn.Module):
             h = self._backbone(params, h, ctx)
 
         logits = self._logits(params, h)
-        targets = torch.roll(tokens, -1, dims=1)
-        mask = batch["loss_mask"].clone()
-        mask[:, -1] = 0.0
+        targets = _roll(tokens, -1)
+        mask = _drop_last(batch["loss_mask"], 1)
         loss = softmax_cross_entropy(logits, targets, mask, cfg.vocab)
 
         if cfg.mtp_depth:
             # DeepSeek-V3 multi-token prediction: predict t+2 from (h_t, e_{t+1})
             mp = params["mtp"]
             nxt = embed_lookup(params["embed"], targets)
-            h2 = einsum("bsd,de->bse", torch.cat([h, nxt], dim=-1),
-                              mp["proj"])
+            h2 = einsum("bsd,de->bse",
+                        concat_rows([h, nxt], axis=-1,
+                                    labels=("dp", "model", None)),
+                        mp["proj"])
             h2 = rms_norm(h2, mp["ln"], cfg.norm_eps)
             h2 = (B.mla_apply if cfg.mla else B.attn_apply)(mp["attn"], h2, ctx, cfg)
             h2 = B.mlp_apply(mp["mlp"], h2, cfg)
             logits2 = self._logits(params, h2)
-            t2 = torch.roll(tokens, -2, dims=1)
-            mask2 = mask.clone()
-            mask2[:, -2:] = 0.0
+            t2 = _roll(tokens, -2)
+            mask2 = _drop_last(mask, 2)
             loss = loss + 0.3 * softmax_cross_entropy(logits2, t2, mask2,
                                                       cfg.vocab)
         return loss
@@ -398,7 +422,7 @@ class LM(nn.Module):
         return abstract(self.cache_spec(batch, max_seq))
 
     # ---------------------------------------------------------- serve: decode
-    @torch.inference_mode()
+    @torch.no_grad()
     def decode_step(self, params: dict, caches: dict, token: torch.Tensor,
                     length, memory: Optional[torch.Tensor] = None):
         """One token for the whole batch. token (B,1) -> logits (B, vpad).
@@ -408,7 +432,7 @@ class LM(nn.Module):
         is written into them in place, and the returned caches are the same
         tensors. Clone them first to keep the old state.
         """
-        h = params["embed"][token]
+        h = embed_lookup(params["embed"], token)
         ctx = Ctx(positions=None, length=int(length), memory=memory)
         new_caches: dict[str, Any] = {}
         for seg in self.segments:
@@ -467,14 +491,14 @@ class LM(nn.Module):
                                          p["wo"]).to(h.dtype)
 
     # --------------------------------------------------------- serve: prefill
-    @torch.inference_mode()
+    @torch.no_grad()
     def prefill(self, params: dict, tokens: torch.Tensor, max_seq: int,
                 memory: Optional[torch.Tensor] = None):
         """Process a full prompt, returning (last-position logits, caches)."""
         bsz, seq = tokens.shape
-        pos = torch.arange(seq, device=tokens.device).expand(bsz, -1)
+        pos = _positions(tokens, bsz, seq)
         ctx = Ctx(positions=pos, length=0, memory=memory)
-        h = embed_lookup(params["embed"], tokens)
+        h = shard_res(embed_lookup(params["embed"], tokens))
         caches: dict[str, Any] = {}
 
         if self.cfg.family == "encdec":

@@ -4,7 +4,8 @@ The same computations as the reference (``repro.models.ssm``): Mamba2 as
 the SSD block decomposition (intra-chunk "attention-like" products, then a
 scan over chunk states), RWKV6 as a sequential wkv recurrence over time,
 vectorized over batch and heads. The reference's ``lax.scan`` loops are
-Python loops here.
+Python loops here. Its sharding constraints are kept at its sites
+(``dist.sharding``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (concat_rows, mesh_tensor, shard_act,
+                                       shard_res, whole)
+from repro_torch.dist.sharding import along, pad as pad_
 from repro_torch.models.layers import einsum, rms_norm, BF16, F32
 from repro_torch.models.spec import PSpec
 
@@ -45,9 +49,13 @@ def _mamba_proj(p: dict, x: torch.Tensor, cfg: ArchConfig):
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     gn = s.n_groups * s.d_state
-    zxbcdt = einsum("bsd,de->bse", x, p["w_in"])
+    zxbcdt = shard_act(einsum("bsd,de->bse", x, p["w_in"]),
+                       "dp", None, "model")
     z = zxbcdt[..., :d_in]
-    conv_in = zxbcdt[..., d_in:2 * d_in + 2 * gn]
+    # [x|B|C] re-joined on the model-sharded feature axis (the reference's
+    # concat of the three slices, which is this one slice)
+    conv_in = shard_act(zxbcdt[..., d_in:2 * d_in + 2 * gn],
+                        "dp", None, "model")
     dt = zxbcdt[..., 2 * d_in + 2 * gn:]
     assert dt.shape[-1] == d_in // s.head_dim
     return z, conv_in, dt
@@ -58,7 +66,7 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     k = w.shape[0]
     out = u * w[k - 1]
     for i in range(1, k):
-        shifted = F.pad(u, (0, 0, i, 0))[:, :u.shape[1]]
+        shifted = pad_(u, (0, 0, i, 0))[:, :u.shape[1]]
         out = out + shifted * w[k - 1 - i]
     return F.silu(out + b)
 
@@ -82,8 +90,8 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     pad = (-S) % cs
     if pad:
         # dt is forced to 0 at padded steps => identity state transitions
-        conv_out = F.pad(conv_out, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+        conv_out = pad_(conv_out, (0, 0, 0, pad))
+        dt = pad_(dt, (0, 0, 0, pad))
         S = S + pad
     xin = conv_out[..., :d_in]
     Bc = conv_out[..., d_in:d_in + G * N].reshape(B_, S, G, N)
@@ -92,7 +100,8 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     a = -torch.exp(p["a_log"])                                    # (H,)
     dt = F.softplus(dt.float() + p["dt_bias"])    # (B,S,H)
     if pad:
-        t_idx = torch.arange(S, device=h.device)
+        t_idx = mesh_tensor(h, lambda sh: torch.arange(S, device=h.device),
+                            (S,))
         dt = dt * (t_idx < S_real)[None, :, None]
     dA = dt * a                                                   # (B,S,H) <=0
     nc = S // cs
@@ -102,7 +111,9 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     Ch = Cc.reshape(B_, nc, cs, G, N)
     dtc = dt.reshape(B_, nc, cs, H)
     dAc = dA.reshape(B_, nc, cs, H)
-    cum = torch.cumsum(dAc, dim=2)                                # (B,nc,cs,H)
+    # (on the local shards: cumsum's backward flips, which DTensor has no
+    # rule for in every torch release)
+    cum = along(dAc, lambda t: torch.cumsum(t, dim=2), 2)         # (B,nc,cs,H)
 
     # --- intra-chunk (per-head decay between positions) -------------------
     rep = H // G
@@ -110,7 +121,8 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     att = torch.repeat_interleave(att, rep, dim=2)                # (B,nc,H,cs,cs)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,nc,cs,cs,H)
     decay = decay.permute(0, 1, 4, 2, 3)                          # (B,nc,H,cs,cs)
-    causal = torch.ones(cs, cs, dtype=torch.bool, device=h.device).tril()
+    causal = mesh_tensor(h, lambda sh: torch.ones(
+        sh, dtype=torch.bool, device=h.device).tril(), (cs, cs))
     # the decay above the diagonal (j > i) is positive and can overflow exp;
     # the where drops those entries, but their gradient would be 0·inf = NaN
     # (the reference's is). Masking them to -inf first leaves the forward
@@ -125,7 +137,9 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     state_loc = einsum("bnjgm,bnjh,bnjhp->bnhmp", Bh.float(), w_local,
                              xh.float())                          # (B,nc,H,N,P)
     chunk_decay = torch.exp(cum[:, :, -1, :])                     # (B,nc,H)
-    state = torch.zeros((B_, H, N, P), dtype=F32, device=h.device)
+    state = mesh_tensor(h, lambda sh: torch.zeros(sh, dtype=F32,
+                                                  device=h.device),
+                        (B_, H, N, P), ("dp", None, None, None))
     prev = []
     for c in range(nc):
         prev.append(state)                                        # PREVIOUS
@@ -138,17 +152,19 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
                            prev_states)
     y = (y_intra.float() + y_inter
          + xh.float() * p["d_skip"][:, None])
-    y = y.reshape(B_, S, d_in)[:, :S_real]
+    # (DTensor has no view rule merging chunks × positions or heads × dims
+    # while they are sharded: they are gathered for the reshape)
+    y = whole(y, 1, 2, 3, 4).reshape(B_, S, d_in)[:, :S_real]
     y = y * F.silu(z.float())
     y = rms_norm(y.to(h.dtype), p["out_ln"], cfg.norm_eps)
-    out = h + einsum("bse,ed->bsd", y, p["w_out"]).to(h.dtype)
+    out = shard_res(h + einsum("bse,ed->bsd", y, p["w_out"]).to(h.dtype))
     if return_cache:
         k = s.d_conv - 1
         conv = conv_in[:, max(S_real - k, 0):S_real].float()
         if conv.shape[1] < k:
             # a prompt shorter than the conv window: zeros before it (the
             # reference's slice keeps fewer rows, and its decode then fails)
-            conv = F.pad(conv, (0, 0, k - conv.shape[1], 0))
+            conv = pad_(conv, (0, 0, k - conv.shape[1], 0))
         return out, {"conv": conv, "state": state}
     return out
 
@@ -176,7 +192,8 @@ def mamba2_decode(p: dict, h: torch.Tensor, cache: dict, cfg: ArchConfig):
     H, P, N, G = d_in // s.head_dim, s.head_dim, s.d_state, s.n_groups
     x0 = rms_norm(h, p["ln"], cfg.norm_eps)
     z, conv_in, dt = _mamba_proj(p, x0, cfg)
-    hist = torch.cat([cache["conv"], conv_in.float()], dim=1)     # (B,k,conv)
+    hist = concat_rows([cache["conv"], conv_in.float()], axis=1,
+                       labels=("dp", None, "model"))              # (B,k,conv)
     conv_out = F.silu(einsum("bkc,kc->bc", hist, p["conv_w"].float())
                       + p["conv_b"].float())
     xin = conv_out[:, :d_in].reshape(B_, H, P)
@@ -237,8 +254,11 @@ def rwkv6_spec(cfg: ArchConfig) -> dict:
 def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x_{t-1} with optional carried last token (decode)."""
     if last is None:
-        return F.pad(x, (0, 0, 1, 0))[:, :x.shape[1]]
-    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+        return pad_(x, (0, 0, 1, 0))[:, :x.shape[1]]
+    if x.shape[1] == 1:
+        return last[:, None]
+    return concat_rows([last[:, None], x[:, :-1]], axis=1,
+                       labels=("dp", "model", None))
 
 
 def _ddlerp(p: dict, x: torch.Tensor, xprev: torch.Tensor) -> list:
@@ -246,10 +266,14 @@ def _ddlerp(p: dict, x: torch.Tensor, xprev: torch.Tensor) -> list:
     xx = (xprev - x).float()
     base = x + xx * p["mu_x"]
     hidden = torch.tanh(einsum("bsd,de->bse", base.to(BF16), p["ddl_w1"]))
-    hidden = hidden.reshape(*hidden.shape[:2], 5, 32)
+    # (the 5·32 axis is split on the local shards: DTensor's view rule
+    # would shard the 5 unevenly)
+    hidden = along(hidden, lambda t: t.reshape(*t.shape[:2], 5, 32), 2)
     dyn = einsum("bsfe,fed->fbsd", hidden, p["ddl_w2"]).float()
-    mixes = p["mu_rkvwg"][:, None, None] + dyn                    # (5,B,S,d)
-    return [(x + xx * m).to(BF16) for m in mixes]
+    # (the 5 streams stay whole: DTensor cannot unbind a sharded dim, and
+    # would shard 5 unevenly)
+    mixes = whole(p["mu_rkvwg"], 0, 1)[:, None, None] + whole(dyn, 0)  # (5,B,S,d)
+    return [(x + xx * m).to(BF16) for m in whole(mixes, 0)]
 
 
 def _wkv_scan(r, k, v, w, u, state):
@@ -276,19 +300,24 @@ def rwkv6_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     H, K = cfg.n_heads, cfg.dh
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, shift_last1))
-    r = einsum("bsd,dhk->bshk", xr, p["w_r"]).float()
-    k = einsum("bsd,dhk->bshk", xk, p["w_k"]).float()
-    v = einsum("bsd,dhk->bshk", xv, p["w_v"]).float()
-    g = F.silu(einsum("bsd,dhk->bshk", xg, p["w_g"]))
+    def heads(x, w):
+        return shard_act(einsum("bsd,dhk->bshk", x, w),
+                         "dp", None, "model", None)
+    r = heads(xr, p["w_r"]).float()
+    k = heads(xk, p["w_k"]).float()
+    v = heads(xv, p["w_v"]).float()
+    g = F.silu(heads(xg, p["w_g"]))
     dec_dyn = einsum("bsd,dl->bsl", xw, p["decay_w1"])
     dec = p["decay_base"][None, None] + einsum(
         "bsl,lhk->bshk", torch.tanh(dec_dyn), p["decay_w2"]).float()
     w = torch.exp(-torch.exp(dec))                                # (B,S,H,K) in (0,1)
 
-    st0 = (torch.zeros((B_, H, K, K), dtype=F32, device=h.device)
+    st0 = (mesh_tensor(h, lambda sh: torch.zeros(sh, dtype=F32,
+                                                 device=h.device),
+                       (B_, H, K, K), ("dp", "model", None, None))
            if state is None else state)
     out, st = _wkv_scan(r, k, v, w, p["bonus_u"], st0)
-    out = out.reshape(B_, S, H, K)
+    out = whole(out.reshape(B_, S, H, K), -1)
     # per-head group norm
     mu = out.mean(-1, keepdim=True)
     var = ((out - mu) ** 2).mean(-1, keepdim=True)
@@ -301,10 +330,11 @@ def rwkv6_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     x2p = _shift(x2, shift_last2)
     xk2 = (x2 + (x2p - x2) * p["mu_ck"]).to(BF16)
     xr2 = (x2 + (x2p - x2) * p["mu_cr"]).to(BF16)
-    kk = torch.square(torch.relu(einsum("bsd,df->bsf", xk2, p["cm_k"])))
+    kk = shard_act(einsum("bsd,df->bsf", xk2, p["cm_k"]), "dp", None, "model")
+    kk = torch.square(torch.relu(kk))
     cv = einsum("bsf,fd->bsd", kk, p["cm_v"])
     rr = torch.sigmoid(einsum("bsd,de->bse", xr2, p["cm_r"]))
-    h = h + (rr * cv).to(h.dtype)
+    h = shard_res(h + (rr * cv).to(h.dtype))
     return h, st, x[:, -1], x2[:, -1]
 
 

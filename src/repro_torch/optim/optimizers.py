@@ -1,10 +1,17 @@
 """Optimizers on parameter trees (nested dicts and lists of tensors).
 
-The reference's ``repro.optim.optimizers`` in PyTorch, minus its sharding
-specs: each optimizer exposes
+The reference's ``repro.optim.optimizers`` in PyTorch: each optimizer
+exposes
 
   init(params) -> state                 (zeros beside the parameters)
+  state_spec(param_spec) -> PSpec tree  (the state's shapes and logical
+                                         axes, so it shards like the
+                                         reference's; zeros, as ``init``)
+  abstract_state(param_spec)            (meta tensors of the state)
   update(grads, state, params, lr) -> (new_params, new_state, grad_norm)
+
+``update`` runs on plain tensors and on DTensor leaves alike (a sharded
+leaf's sum of squares is reduced to a replicated scalar before the norm).
 
 Updates are functional (new tensors), as in the reference, so a caller can
 drop a step's update and keep the old parameters. Implemented: SGD with
@@ -20,6 +27,10 @@ from functools import partial
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.dist.sharding import mesh_tensor
+from repro_torch.models.spec import PSpec, abstract, tree_map as _spec_map
 
 QBLOCK = 256  # block size for 8-bit moment quantization
 
@@ -48,12 +59,49 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduction (a ``Partial`` sum over its sharded axes)
+    reduced to a replicated value; a plain tensor as it is."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return x
+
+
+def _loc(x):
+    """A replicated DTensor scalar's local value; anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _local_leaves(fn: Callable, *trees):
+    """``tree_map(fn, *trees)`` for an elementwise ``fn``. Where the leaves
+    are DTensors, which must share one mesh, shape and placements, ``fn``
+    runs on their local shards and its outputs (a tensor or a tuple) take
+    the same placements: one call per leaf instead of a DTensor dispatch
+    per op. Scalars ``fn`` closes over must be local (:func:`_loc`)."""
+    def go(*xs):
+        if not isinstance(xs[0], DTensor):
+            return fn(*xs)
+        mesh, plc, shape = xs[0].device_mesh, xs[0].placements, xs[0].shape
+        if any(not isinstance(x, DTensor) or x.placements != plc
+               or x.shape != shape for x in xs):
+            raise ValueError(f"leaves of shape {tuple(shape)} differ in "
+                             f"placement: {[getattr(x, 'placements', None) for x in xs]}")
+        out = fn(*(x.to_local() for x in xs))
+
+        def wrap(o):
+            return DTensor.from_local(o, mesh, plc, run_check=False)
+        return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+    return tree_map(go, *trees)
+
+
 def global_norm_clip(grads, max_norm: float):
     """(grads scaled to global norm ≤ ``max_norm``, in f32; the norm)."""
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    gn = torch.sqrt(sum(_replicated(torch.sum(torch.square(g.float())))
+                        for g in leaves))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: g.float() * scale, grads), gn
+    sc = _loc(scale)
+    return _local_leaves(lambda g: g.float() * sc, grads), gn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +110,23 @@ class Optimizer:
     init: Callable            # params -> state
     update: Callable          # (grads, state, params, lr) -> (params, state, gn)
     lr: float = 1e-3
+    state_spec: Optional[Callable] = None   # param PSpec tree -> state's
+
+    def abstract_state(self, param_spec):
+        return abstract(self.state_spec(param_spec))
 
 
 def _count(params) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32,
-                       device=tree_leaves(params)[0].device)
+    ref = tree_leaves(params)[0]
+    return mesh_tensor(ref, lambda s: torch.zeros(s, dtype=torch.int32,
+                                                  device=ref.device), ())
+
+
+def _f32_spec(s: PSpec) -> PSpec:
+    return PSpec(s.shape, s.logical, init="zeros", dtype=torch.float32)
+
+
+_COUNT = PSpec((), (), init="zeros", dtype=torch.int32)
 
 
 def _zeros_f32(params):
@@ -80,13 +140,22 @@ def _sgd_init(params) -> dict:
 
 def _sgd_update(grads, state, params, lr, *, beta=0.9, clip=1.0):
     g32, gn = global_norm_clip(grads, clip)
-    mom = tree_map(lambda m, g: beta * m + g, state["mom"], g32)
-    new_p = tree_map(lambda p, m: (p.float() - lr * m).to(p.dtype),
-                     params, mom)
+    mom = _local_leaves(lambda m, g: beta * m + g, state["mom"], g32)
+    new_p = _local_leaves(lambda p, m: (p.float() - lr * m).to(p.dtype),
+                          params, mom)
     return new_p, {"mom": mom, "count": state["count"] + 1}, gn
 
 
+def _sgd_spec(pspec) -> dict:
+    return {"mom": _spec_map(_f32_spec, pspec), "count": _COUNT}
+
+
 # -------------------------------------------------------------------- AdamW
+def _adamw_spec(pspec) -> dict:
+    return {"m": _spec_map(_f32_spec, pspec), "v": _spec_map(_f32_spec, pspec),
+            "master": _spec_map(_f32_spec, pspec), "count": _COUNT}
+
+
 def _adamw_init(params) -> dict:
     return {"m": _zeros_f32(params), "v": _zeros_f32(params),
             "master": _zeros_f32(params), "count": _count(params)}
@@ -97,19 +166,22 @@ def _adamw_update(grads, state, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
     g32, gn = global_norm_clip(grads, clip)
     cnt = state["count"] + 1
     t = cnt.float()
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], g32)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], g32)
-    # master==0 at step 1 means "adopt current params" (init-free warm start)
-    master = tree_map(lambda ms, p: torch.where(cnt == 1, p.float(), ms),
-                      state["master"], params)
-    master = tree_map(
-        lambda ms, m_, v_: ms - lr * ((m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
-                                      + wd * ms),
-        master, m, v)
-    new_p = tree_map(lambda ms, p: ms.to(p.dtype), master, params)
-    return new_p, {"m": m, "v": v, "master": master, "count": cnt}, gn
+    bc1, bc2, first = (_loc(x) for x in (1.0 - torch.pow(b1, t),
+                                         1.0 - torch.pow(b2, t), cnt == 1))
+
+    def upd(g, m_, v_, ms, p):
+        m = b1 * m_ + (1 - b1) * g
+        v = b2 * v_ + (1 - b2) * g * g
+        # master==0 at step 1 means "adopt current params" (init-free warm
+        # start)
+        ms = torch.where(first, p.float(), ms)
+        ms = ms - lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps) + wd * ms)
+        return ms.to(p.dtype), m, v, ms
+
+    outs = _local_leaves(upd, g32, state["m"], state["v"], state["master"],
+                         params)
+    return _part(outs, 0), {"m": _part(outs, 1), "v": _part(outs, 2),
+                            "master": _part(outs, 3), "count": cnt}, gn
 
 
 # --------------------------------------------------------------- AdamW 8-bit
@@ -120,13 +192,27 @@ def _q8_scale_shape(shape) -> tuple:
     return tuple(shape[:-1]) + (max(1, (last + QBLOCK - 1) // QBLOCK),)
 
 
+def _adamw8_spec(pspec) -> dict:
+    def q8(s):
+        return PSpec(s.shape, s.logical, init="zeros", dtype=torch.int8)
+
+    def sc(s):
+        return PSpec(_q8_scale_shape(s.shape),
+                     tuple(s.logical[:-1]) + (None,) if s.shape else (None,),
+                     init="zeros", dtype=torch.float32)
+    return {"m_q": _spec_map(q8, pspec), "m_s": _spec_map(sc, pspec),
+            "v_q": _spec_map(q8, pspec), "v_s": _spec_map(sc, pspec),
+            "master": _spec_map(_f32_spec, pspec), "count": _COUNT}
+
+
 def _adamw8_init(params) -> dict:
     def q8(p):
         return torch.zeros_like(p, dtype=torch.int8)
 
     def sc(p):
-        return torch.zeros(_q8_scale_shape(tuple(p.shape)),
-                           dtype=torch.float32, device=p.device)
+        return mesh_tensor(p, lambda s: torch.zeros(s, dtype=torch.float32,
+                                                    device=p.device),
+                           _q8_scale_shape(tuple(p.shape)))
     return {"m_q": tree_map(q8, params), "m_s": tree_map(sc, params),
             "v_q": tree_map(q8, params), "v_s": tree_map(sc, params),
             "master": _zeros_f32(params), "count": _count(params)}
@@ -188,24 +274,44 @@ def _part(outs, i: int):
 
 
 # ------------------------------------------------------------------ Adafactor
+def _adafactor_spec(pspec) -> dict:
+    def vr(s):
+        if len(s.shape) >= 2:
+            return PSpec(s.shape[:-1], s.logical[:-1], init="zeros",
+                         dtype=torch.float32)
+        return _f32_spec(s)
+
+    def vc(s):
+        if len(s.shape) >= 2:
+            return PSpec(s.shape[:-2] + s.shape[-1:],
+                         s.logical[:-2] + s.logical[-1:], init="zeros",
+                         dtype=torch.float32)
+        return PSpec((1,), (None,), init="zeros", dtype=torch.float32)
+    return {"vr": _spec_map(vr, pspec), "vc": _spec_map(vc, pspec),
+            "count": _COUNT}
+
+
 def _adafactor_init(params) -> dict:
+    def zeros(p, shape):
+        return mesh_tensor(p, lambda s: torch.zeros(s, dtype=torch.float32,
+                                                    device=p.device), shape)
+
     def vr(p):
-        shape = p.shape[:-1] if p.ndim >= 2 else p.shape
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        return zeros(p, p.shape[:-1] if p.ndim >= 2 else p.shape)
 
     def vc(p):
-        shape = (p.shape[:-2] + p.shape[-1:]) if p.ndim >= 2 else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        return zeros(p, (p.shape[:-2] + p.shape[-1:]) if p.ndim >= 2
+                     else (1,))
     return {"vr": tree_map(vr, params), "vc": tree_map(vc, params),
             "count": _count(params)}
 
 
-def _sq_einsum(g: torch.Tensor, axis: int) -> torch.Tensor:
-    """Σ g² over one axis, in f32. The reference multiplies bf16 operands
+def _sq_einsum(g: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+    """Σ g² over one axis (every axis when None), in f32. The reference multiplies bf16 operands
     with f32 accumulation; a product of two bf16 values is exact in f32, so
     upcasting first changes only the order of the sum."""
     gf = g.float()
-    return (gf * gf).sum(axis)
+    return (gf * gf).sum() if axis is None else (gf * gf).sum(axis)
 
 
 def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
@@ -221,7 +327,9 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
       clip is per chunk; the row statistics' mean and the column
       statistics stay whole-leaf).
     """
-    gn = torch.sqrt(sum(_sq_einsum(g.reshape(-1), 0)
+    # each leaf's Σg² over all its dims at once: a reshape(-1) of a sharded
+    # leaf would gather it
+    gn = torch.sqrt(sum(_replicated(_sq_einsum(g))
                         for g in tree_leaves(grads)))
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
     cnt = state["count"] + 1
@@ -288,21 +396,24 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
 
 # -------------------------------------------------------------------- factory
 def sgd(lr=1e-2, **kw) -> Optimizer:
-    return Optimizer("sgd", _sgd_init, partial(_sgd_update, **kw), lr=lr)
+    return Optimizer("sgd", _sgd_init, partial(_sgd_update, **kw), lr=lr,
+                     state_spec=_sgd_spec)
 
 
 def adamw(lr=3e-4, **kw) -> Optimizer:
-    return Optimizer("adamw", _adamw_init, partial(_adamw_update, **kw), lr=lr)
+    return Optimizer("adamw", _adamw_init, partial(_adamw_update, **kw), lr=lr,
+                     state_spec=_adamw_spec)
 
 
 def adamw8bit(lr=3e-4, **kw) -> Optimizer:
     return Optimizer("adamw8bit", _adamw8_init, partial(_adamw8_update, **kw),
-                     lr=lr)
+                     lr=lr, state_spec=_adamw8_spec)
 
 
 def adafactor(lr=1e-2, **kw) -> Optimizer:
     return Optimizer("adafactor", _adafactor_init,
-                     partial(_adafactor_update, **kw), lr=lr)
+                     partial(_adafactor_update, **kw), lr=lr,
+                     state_spec=_adafactor_spec)
 
 
 def make_optimizer(name: str, lr: Optional[float] = None) -> Optimizer:

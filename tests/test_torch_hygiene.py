@@ -135,7 +135,9 @@ def test_port_clis_refuse_to_run_on_cpu_unasked(cli, tmp_path):
             "serve_gnn_torch.py": ["--preset", "ppi-cpu",
                                    "--train-steps", "50"],
             "serve_decode_torch.py": ["--arch", "llama3.2-1b"],
-            "train_lm_torch.py": ["--arch", "llama3.2-1b", "--steps", "2"]}.get(
+            "train_lm_torch.py": ["--arch", "llama3.2-1b", "--steps", "2"],
+            "multipod_dryrun_torch.py": ["--arch", "llama3.2-1b", "--shape",
+                                         "train_4k", "--single-pod"]}.get(
                 cli.name, ["--preset", "ppi-cpu", "--steps", "50"])
     res = subprocess.run([sys.executable, str(cli), *args],
                          capture_output=True, text=True, env=env, timeout=120)
