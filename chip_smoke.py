@@ -11,6 +11,14 @@ which raises on failure:
 
   1. build  — compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
      sm_90a), one nvcc per source in parallel, and print the build time;
+     1b. analysis — ``python -m repro_torch.analysis`` as a process over
+     this tree's ``src/repro_torch`` and this file: exit 0 (no unsuppressed
+     finding) and its per-rule summary; R003's shared-memory budget
+     (``rules_cuda.SMEM_OPTIN_BYTES``) must equal the card's opt-in per
+     block (``build.smem_optin``; on another card this fails and names
+     both numbers); after phase 2, the dynamic shared memory that each
+     resident kernel's launcher requested there (M * bd * element bytes,
+     from the arguments its wrapper passed, ``_SlabSpy``) must fit it;
   2. kernels — each kernel against its plain PyTorch twin on the card, on the
      shapes the serving path gives it (a 100-target request on the
      arxiv-like graph: ELL buckets (3840, 8), (3840, 32), (4608, 128) over
@@ -167,6 +175,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 SPMM_SHAPES = ((3840, 8), (3840, 32), (4608, 128))
 RESIDENT_SHAPES = ((3072, 8), (3072, 32), (3328, 128))   # arxiv-cpu, n_ext 2880
+# the resident entry points' argument positions of (M, bd, bf16 source
+# flag), which their launchers size the slab from: M * bd * element bytes
+# (kernels/ell_spmm.py, kernels/compensate.py)
+RESIDENT_ARGS = {"repro_ell_spmm_resident": (7, 10, 12),
+                 "repro_lmc_compensate_resident": (7, 9, 11)}
 PARTS, CLUSTERS = 32, 4          # examples/train_gnn.py defaults
 HIDDEN, LAYERS = 256, 3
 N_TRAIN_STEPS = 6
@@ -209,6 +222,76 @@ def _phase_build() -> None:
           f"{sorted(str(p.name) for p in paths.values())}")
     for name, p in paths.items():
         assert p.exists() and p == library_path(name), p
+
+
+def _phase_analysis() -> None:
+    """Phase 1b: the port's static analysis over this tree, and R003's
+    budget against the card."""
+    from repro_torch.analysis.rules_cuda import SMEM_OPTIN_BYTES
+    from repro_torch.kernels.build import smem_optin
+    root = Path(__file__).resolve().parent
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis",
+         str(root / "src" / "repro_torch"), str(root / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert res.returncode == 0, \
+        f"repro_torch.analysis exited {res.returncode}:\n{res.stdout}" \
+        f"{res.stderr}"
+    for line in res.stdout.strip().splitlines():
+        print(f"phase 1b analysis: {line}")
+    print(f"phase 1b analysis: {time.time() - t0:.2f} s as a process")
+    optin = smem_optin(0)
+    assert SMEM_OPTIN_BYTES == optin, (
+        f"R003's shared-memory budget is {SMEM_OPTIN_BYTES} B, but this "
+        f"card's opt-in per block is {optin} B")
+    print(f"phase 1b R003 budget {SMEM_OPTIN_BYTES} B = smem_optin(0)")
+
+
+class _SlabSpy:
+    """While active, records per resident entry point the most dynamic
+    shared memory a launch requested: the wrappers' ``load_kernel`` hands
+    back the entry point wrapped, and each call reads M, bd and the
+    element size from the arguments the wrapper passes."""
+
+    def __enter__(self):
+        self.seen: dict = {}
+        self._mods = tuple(importlib.import_module(f"repro_torch.kernels.{m}")
+                           for m in ("ell_spmm", "compensate"))
+        self._orig = [m.load_kernel for m in self._mods]
+
+        def spy(load):
+            def load_kernel(name, symbol, argtypes):
+                fn = load(name, symbol, argtypes)
+                if symbol not in RESIDENT_ARGS:
+                    return fn
+                i_m, i_bd, i_bf16 = RESIDENT_ARGS[symbol]
+
+                def call(*args):
+                    nbytes = args[i_m] * args[i_bd] * (2 if args[i_bf16]
+                                                       else 4)
+                    self.seen[symbol] = max(self.seen.get(symbol, 0), nbytes)
+                    return fn(*args)
+                return call
+            return load_kernel
+        for m, orig in zip(self._mods, self._orig):
+            m.load_kernel = spy(orig)
+        return self
+
+    def __exit__(self, *exc):
+        for m, orig in zip(self._mods, self._orig):
+            m.load_kernel = orig
+
+    def check(self) -> None:
+        """Phase 1b's last check, after phase 2: every resident kernel
+        launched, each within R003's budget."""
+        from repro_torch.analysis.rules_cuda import SMEM_OPTIN_BYTES
+        assert set(self.seen) == set(RESIDENT_ARGS), self.seen
+        for symbol, nbytes in sorted(self.seen.items()):
+            assert nbytes <= SMEM_OPTIN_BYTES, (symbol, nbytes)
+            print(f"phase 1b {symbol}: phase 2 requested at most {nbytes} B "
+                  f"of dynamic shared memory <= budget {SMEM_OPTIN_BYTES} B")
 
 
 def _spmm_case(idx, w, h, rows, num_rows: int, resident: bool = False,
@@ -2288,21 +2371,24 @@ def main() -> int:
     from repro_torch.serve import StoreGateway
 
     _phase_build()
+    _phase_analysis()
     graph = make_sbm_dataset("arxiv-like", seed=0)
     gateway = StoreGateway(graph, agg_backend="ell")
-    _phase_kernels(graph, gateway)
-    t0 = time.time()
-    # examples/train_gnn.py: partition seed 0, sampler seed 1
-    sampler = ClusterSampler(graph, PARTS, CLUSTERS,
-                             parts=partition_graph(graph, PARTS, seed=0),
-                             seed=1)
-    print(f"phase 2 arxiv-like partition into {PARTS} + pad sizes: "
-          f"{time.time() - t0:.1f} s")
-    small = make_sbm_dataset("arxiv-cpu", seed=0)
-    small_parts = partition_graph(small, PARTS, seed=0)
-    numbers = _phase_train_kernels(
-        sampler, ClusterSampler(small, PARTS, CLUSTERS, parts=small_parts,
-                                seed=1))
+    with _SlabSpy() as slabs:
+        _phase_kernels(graph, gateway)
+        t0 = time.time()
+        # examples/train_gnn.py: partition seed 0, sampler seed 1
+        sampler = ClusterSampler(graph, PARTS, CLUSTERS,
+                                 parts=partition_graph(graph, PARTS, seed=0),
+                                 seed=1)
+        print(f"phase 2 arxiv-like partition into {PARTS} + pad sizes: "
+              f"{time.time() - t0:.1f} s")
+        small = make_sbm_dataset("arxiv-cpu", seed=0)
+        small_parts = partition_graph(small, PARTS, seed=0)
+        numbers = _phase_train_kernels(
+            sampler, ClusterSampler(small, PARTS, CLUSTERS,
+                                    parts=small_parts, seed=1))
+    slabs.check()
     launches, served = _phase_slice(graph, gateway)
     train_counts, phase4 = _phase_train(graph, sampler)
     for counts in (train_counts, _phase_resident(small, small_parts),

@@ -289,6 +289,7 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
         self_w_ext = gather_rows(self_w_full, ext_gids)
         edges = EdgeList(batch.edge_src, batch.edge_dst, batch.edge_w)
         vjp_emb = None
+        # lint: ok(R004) `params` is a dict: this tests whether the embed subtree is empty (a structure test on the host), never a tensor
         if params["embed"]:
             h0_ext, vjp_emb = torch.func.vjp(
                 lambda e: gnn.embed_apply(e, x_ext), params["embed"])

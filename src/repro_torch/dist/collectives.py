@@ -129,6 +129,7 @@ def all_gather_blocks(block: torch.Tensor, n: int, group=None,
     padded[:moved.shape[0]] = moved
     parts = [torch.empty_like(padded) for _ in range(world)]
     dist.all_gather(parts, padded, group=group)
+    # lint: ok(R001) plain tensors: the GNN's row exchanges run one process per device over torch.distributed, never on DTensors
     return torch.cat(parts)[:n].movedim(0, axis)
 
 
@@ -138,6 +139,7 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor],
     flat concatenation (``ReduceOp.SUM``: gloo has no ``AVG``)."""
     if not distributed(group):
         return list(tensors)
+    # lint: ok(R001) plain tensors: the GNN's gradients and counts, summed over the ranks of a torch.distributed group, never DTensors
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     out, off = [], 0

@@ -540,7 +540,9 @@ def _join_rows(chunks: list) -> torch.Tensor:
     """The inverse of :func:`_chunk_rows`."""
     first = chunks[0]
     if not isinstance(first, DTensor):
+        # lint: ok(R001) the off-mesh branch: the chunks are plain tensors here
         return torch.stack(chunks).reshape(-1, *first.shape[1:])
+    # lint: ok(R001) stacks the chunks' local shards (plain tensors); the DTensor is rebuilt from them on the chunks' own placements
     loc = torch.stack([c.to_local() for c in chunks])
     loc = loc.reshape(-1, *loc.shape[2:])
     return DTensor.from_local(loc, first.device_mesh, first.placements,

@@ -107,6 +107,7 @@ def _stack_trees(trees: list):
     """Stack a list of same-structured trees on a new leading axis."""
     if isinstance(trees[0], dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    # lint: ok(R001) one cache leaf per layer, all on one placement, stacked on a new leading axis: DTensor keeps it and runs no collective (tests/test_torch_lm_sharded.py)
     return torch.stack(trees)
 
 

@@ -144,6 +144,7 @@ def mamba2_apply(p: dict, h: torch.Tensor, cfg: ArchConfig,
     for c in range(nc):
         prev.append(state)                                        # PREVIOUS
         state = state * chunk_decay[:, c, :, None, None] + state_loc[:, c]
+    # lint: ok(R001) the chunk states share one placement and stack on a new axis: DTensor keeps it and runs no collective (tests/test_torch_lm_sharded.py)
     prev_states = torch.stack(prev, dim=1)                        # (B,nc,H,N,P)
 
     Ch_h = torch.repeat_interleave(Ch, rep, dim=3).reshape(B_, nc, cs, H, N)
@@ -288,6 +289,7 @@ def _wkv_scan(r, k, v, w, u, state):
         outs.append(einsum("bhk,bhkv->bhv", r[:, t],
                                  state + u[None, :, :, None] * kv))
         state = state * w[:, t, :, :, None] + kv
+    # lint: ok(R001) the step outputs share one placement and stack on a new axis: DTensor keeps it and runs no collective (tests/test_torch_lm_sharded.py)
     return torch.stack(outs, dim=1), state
 
 

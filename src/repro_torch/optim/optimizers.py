@@ -320,12 +320,17 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
 
     * global-norm clip folded into the per-leaf update
     * factored second-moment statistics for leaves of ndim >= 2
-    * leaves of more than ``stream_bytes`` in f32 are updated in pieces, as
-      in the reference, and the pieces change the numbers: a leaf of ndim
-      >= 3 is updated per slice of its leading axis (its relative-RMS clip
-      is per layer), a bigger 2-D leaf in up to 64 chunks of rows (the
-      clip is per chunk; the row statistics' mean and the column
-      statistics stay whole-leaf).
+    * leaves of more than ``stream_bytes`` in f32 get the numbers of the
+      reference's pieces: a leaf of ndim >= 3 is updated per slice of its
+      leading axis (its relative-RMS clip is per layer), a bigger 2-D leaf
+      in up to 64 chunks of rows (the clip is per chunk; the row
+      statistics' mean and the column statistics stay whole-leaf).
+
+    The pieces are the leading axis of a view, not slices: one batched
+    pass, in which a sharded leaf's ranks each work on their own rows and
+    DTensor reduces the statistics over the sharded dims (a slice of a
+    row-sharded leaf, and a ``cat`` of the pieces, would gather it). Its
+    f32 temporaries are the whole local shard's, not one piece's.
     """
     # each leaf's Σg² over all its dims at once: a reshape(-1) of a sharded
     # leaf would gather it
@@ -337,11 +342,18 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
     beta = 1.0 - torch.pow(t, -decay)
     s2 = scale * scale
 
-    def rms_clip(u):
-        rms_u = torch.sqrt(torch.mean(u * u) + 1e-12)
+    def rms_clip(u, per_piece=False):
+        """The relative-RMS clip: over all of ``u``, or per slice of its
+        leading axis."""
+        dims = tuple(range(1, u.ndim)) if per_piece else tuple(range(u.ndim))
+        rms_u = torch.sqrt(torch.mean(u * u, dims, keepdim=per_piece)
+                           + 1e-12)
         return u / torch.clamp(rms_u, min=1.0)
 
-    def upd(p, g, vr, vc):
+    def new_param(p, u):
+        return ((1.0 - lr * wd) * p.float() - lr * u).to(p.dtype)
+
+    def upd(p, g, vr, vc, per_piece=False):
         if g.ndim >= 2:
             vr2 = beta * vr + (1 - beta) * (s2 * _sq_einsum(g, g.ndim - 1)
                                             / g.shape[-1] + eps)
@@ -350,44 +362,39 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
             denom = torch.clamp(vr2.mean(-1, keepdim=True), min=eps)
             r_fac = torch.rsqrt(torch.clamp(vr2 / denom, min=eps))[..., None]
             c_fac = torch.rsqrt(torch.clamp(vc2, min=eps))[..., None, :]
-            u = rms_clip(g.float() * scale * r_fac * c_fac)
-            newp = (1.0 - lr * wd) * p.float() - lr * u
-            return newp.to(p.dtype), vr2, vc2
+            u = rms_clip(g.float() * scale * r_fac * c_fac, per_piece)
+            return new_param(p, u), vr2, vc2
         vr2 = beta * vr + (1 - beta) * (s2 * g.float() ** 2 + eps)
         u = g.float() * scale * torch.rsqrt(torch.clamp(vr2, min=eps))
-        u = rms_clip(u)
-        newp = (1.0 - lr * wd) * p.float() - lr * u
-        return newp.to(p.dtype), vr2, vc
+        return new_param(p, rms_clip(u)), vr2, vc
+
+    def upd_chunks(p, g, vr, vc, chunks):
+        """A 2-D leaf as ``chunks`` pieces of rows: (chunks, n, cols)."""
+        rows, cols = p.shape
+        n = rows // chunks
+        p3, g3 = p.reshape(chunks, n, cols), g.reshape(chunks, n, cols)
+        # the column statistics: the mean of the pieces' means
+        vc_parts = _sq_einsum(g3, 1) / n
+        vc2 = beta * vc + (1 - beta) * (s2 * vc_parts.mean(0) + eps)
+        vr2 = beta * vr.reshape(chunks, n) + (1 - beta) * (
+            s2 * _sq_einsum(g3, 2) / cols + eps)
+        denom = torch.clamp(vr2.mean(), min=eps)
+        r_fac = torch.rsqrt(torch.clamp(vr2 / denom, min=eps))[..., None]
+        c_fac = torch.rsqrt(torch.clamp(vc2, min=eps))
+        u = rms_clip(g3.float() * scale * r_fac * c_fac, per_piece=True)
+        return (new_param(p3, u).reshape(p.shape), vr2.reshape(vr.shape),
+                vc2)
 
     def upd_leaf(p, g, vr, vc):
         if p.numel() * 4 <= stream_bytes:
             return upd(p, g, vr, vc)
         if p.ndim >= 3:
-            outs = [upd(p[i], g[i], vr[i], vc[i]) for i in range(p.shape[0])]
-            return tuple(torch.stack(o) for o in zip(*outs))
-        rows = p.shape[0]
-        chunks = 1
-        for c in (64, 32, 16, 8, 4, 2):
-            if rows % c == 0 and p.numel() * 4 // c <= stream_bytes:
-                chunks = c
-                break
-        n = rows // chunks
-        pieces = [slice(i * n, (i + 1) * n) for i in range(chunks)]
-        vc_parts = torch.stack([_sq_einsum(g[sl], 0) / n for sl in pieces])
-        vc2 = beta * vc + (1 - beta) * (s2 * vc_parts.mean(0) + eps)
-        # two passes: (1) the row statistics per chunk, (2) the update with
-        # their mean over the whole leaf
-        vr2 = torch.stack([beta * vr[sl] + (1 - beta)
-                           * (s2 * _sq_einsum(g[sl], 1) / g.shape[-1] + eps)
-                           for sl in pieces])
-        denom = torch.clamp(vr2.mean(), min=eps)
-        c_fac = torch.rsqrt(torch.clamp(vc2, min=eps))[None, :]
-        newp = []
-        for i, sl in enumerate(pieces):
-            r_fac = torch.rsqrt(torch.clamp(vr2[i] / denom, min=eps))[..., None]
-            u = rms_clip(g[sl].float() * scale * r_fac * c_fac)
-            newp.append(((1.0 - lr * wd) * p[sl].float() - lr * u).to(p.dtype))
-        return torch.cat(newp), vr2.reshape(vr.shape), vc2
+            return upd(p, g, vr, vc, per_piece=True)
+        chunks = next((c for c in (64, 32, 16, 8, 4, 2) if p.shape[0] % c == 0
+                       and p.numel() * 4 // c <= stream_bytes), 1)
+        if chunks == 1:
+            return upd(p, g, vr, vc)
+        return upd_chunks(p, g, vr, vc, chunks)
 
     outs = tree_map(upd_leaf, params, grads, state["vr"], state["vc"])
     return _part(outs, 0), {"vr": _part(outs, 1), "vc": _part(outs, 2),

@@ -3,24 +3,26 @@
 on the CPU, each with its own cluster batch and its row blocks of the
 stores, features and self-loop weights.
 
-This module imports only torch, numpy and ``repro_torch``: the workers are
-spawned, and a spawned child imports the module of its target, so nothing
-here may pull in JAX.
+This module imports only torch, numpy, ``repro_torch`` and
+``_torch_ranks``: the workers are spawned, and a spawned child imports the
+module of its target, so nothing here may pull in JAX. Every rank beats its
+heartbeat after each phase (``_torch_ranks``), so a slow rank is waited for
+and a hung one fails.
 
 The graph is the reference test's (tests/test_distributed.py): ``ppi-cpu``
 (seed 3), 8 parts (partition seed 0), one cluster per rank (sampler seed 1),
 GCN 2×32. Parameters and stores come from the caller as numpy arrays.
 """
 import multiprocessing as mp
-import time
 import traceback
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from _torch_ranks import heartbeat, join_ranks
+
 PARTS, HIDDEN, LAYERS, LR = 8, 32, 2, 0.3
-JOIN_S = 120.0   # a hung rank fails the test instead of stalling the run
 
 
 def setup():
@@ -72,6 +74,7 @@ def _run(rank: int, world: int, init_file: str, job: dict, out: str):
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
+        heartbeat(out, rank)
         from repro_torch.checkpoint import (CheckpointManager, reshard,
                                             unshard)
         from repro_torch.core import HistoricalState
@@ -79,6 +82,7 @@ def _run(rank: int, world: int, init_file: str, job: dict, out: str):
         from repro_torch.optim import sgd
         from repro_torch.train import rescale_lmc_state
         g, sampler, gnn, data = setup()
+        heartbeat(out, rank)
         n = g.num_nodes
         opt = sgd(lr=LR)
         if job["kind"] == "resume":
@@ -103,6 +107,7 @@ def _run(rank: int, world: int, init_file: str, job: dict, out: str):
         params, opt_state = tree["params"], tree["opt"]
         loss, grads, metrics = _step_on_blocks(job, g, sampler, gnn, data,
                                                params, store)
+        heartbeat(out, rank)
         if job["kind"] == "save":
             params, opt_state, _ = opt.update(grads, opt_state, params, LR)
             state = {"params": params, "opt": opt_state,
@@ -123,7 +128,8 @@ def _run(rank: int, world: int, init_file: str, job: dict, out: str):
 
 def run_ranks(world: int, job: dict, tmp: Path) -> list:
     """Run ``job`` on ``world`` spawned gloo ranks; each rank's results, in
-    rank order. Fails (terminating every rank) past the join deadline."""
+    rank order. Fails (terminating every rank) when a rank exits non-zero
+    or none makes progress for ``_torch_ranks.JOIN_S`` seconds."""
     ctx = mp.get_context("spawn")
     out = tmp / f"out{world}_{job['kind']}"
     out.mkdir()
@@ -133,16 +139,6 @@ def run_ranks(world: int, job: dict, tmp: Path) -> list:
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.time() + JOIN_S
-    for p in procs:
-        p.join(max(0.0, deadline - time.time()))
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.terminate()
-        p.join(10)
-    errs = {f.name: f.read_text() for f in out.glob("*.err")}
-    assert not alive, f"ranks still running after {JOIN_S} s: {errs}"
-    assert all(p.exitcode == 0 for p in procs), \
-        ([p.exitcode for p in procs], errs)
+    join_ranks(procs, out)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world)]

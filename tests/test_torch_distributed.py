@@ -8,7 +8,9 @@ Graph: ``ppi-cpu`` (seed 3), 8 parts, one cluster per device, GCN 2×32.
 Tolerances (those of tests/test_torch_train.py): loss rtol 1e-5; grads and
 the h/v stores after the step's commit rtol 2e-4, atol 1e-6; ``train_acc``
 equal. The spawned ranks run ``tests/_torch_dist.py``, which imports no
-JAX; each run has a join deadline of ``_torch_dist.JOIN_S`` seconds.
+JAX; each run is joined on progress (``tests/_torch_ranks.py``: it fails
+when a rank exits non-zero or no rank beats its heartbeat for ``JOIN_S``
+seconds).
 """
 import dataclasses
 

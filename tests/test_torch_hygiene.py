@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
 ``chip_smoke.py``, the port's CLIs (``examples/*_torch.py``) or the worker
-module the distributed tests spawn (``tests/_torch_dist.py``), and its entry
-points never drop to the CPU unasked."""
+modules the distributed tests spawn (``tests/_torch_dist.py``,
+``_torch_lm_dist.py`` and their ``_torch_ranks.py``), and its entry points
+never drop to the CPU unasked."""
 import ast
 import os
 import subprocess
@@ -16,8 +17,10 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 CHIP_SMOKE = REPO / "chip_smoke.py"
 PORT_CLIS = sorted((REPO / "examples").glob("*_torch.py"))
-# spawned by the distributed tests: its children must not import JAX
-DIST_WORKERS = REPO / "tests" / "_torch_dist.py"
+# spawned by the distributed tests: their children must not import JAX
+DIST_WORKERS = [REPO / "tests" / f for f in ("_torch_dist.py",
+                                             "_torch_lm_dist.py",
+                                             "_torch_ranks.py")]
 
 
 def _imported_modules(path: Path) -> list:
@@ -37,7 +40,7 @@ def _forbidden(mod: str) -> bool:
 
 @pytest.mark.parametrize("path",
                          sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + PORT_CLIS
-                         + [DIST_WORKERS],
+                         + DIST_WORKERS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
@@ -50,7 +53,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.graph.partition, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.dist, "
             "repro_torch.core.distributed, repro_torch.models.lm, "
-            "repro_torch.configs, repro_torch.launch.steps; "
+            "repro_torch.configs, repro_torch.launch.steps, "
+            "repro_torch.analysis.__main__; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")

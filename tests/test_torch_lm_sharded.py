@@ -5,8 +5,10 @@ dispatch against the reference's SPMD step.
 Two meshes of four gloo ranks, (2, 2) over ("data", "model") and (2, 2, 1)
 over ("pod", "data", "model"): three spawns, one after the other
 (``tests/_torch_lm_dist.py``, which imports no JAX), each running its cases
-in turn. Every reduced arch (on the 3-axis mesh all but the four in
-``SLOW_3D``) takes one train step in f32 parameters from the reference's weights
+in turn and joined on progress (``tests/_torch_ranks.py``: a spawn fails
+when a rank exits non-zero or no rank beats its heartbeat for ``JOIN_S``
+seconds, never for being slow). Every reduced arch (on the 3-axis mesh all
+but the four in ``SLOW_3D``) takes one train step in f32 parameters from the reference's weights
 (``_torch_lm.ref_params``, constants moved off their constants), cut to two
 layers and at most 2 microbatches; qwen2.5 and llama3.2 prefill and decode one token with
 the caches placed by ``cache_spec`` (both decode steps start from the
@@ -20,6 +22,15 @@ The MoE case: deepseek-v2-lite with a batch of 2 rows, for which the
 dispatch chunk count is 2 on one process and 1 on the (2, 2) mesh (the
 reference's rule, ``repro/models/blocks.py:463``), against the reference's
 own jitted step on a (2, 2) mesh of 4 XLA host devices.
+
+The streamed Adafactor case: llama3.2-1b with Adafactor and
+``stream_bytes`` lowered so that its layer stacks and embed take the
+streamed update, on the (2, 2) mesh against the plain step, with the
+elements its update all-gathers counted (``_torch_lm_dist.GatherProbe``).
+
+The raw ``torch.stack`` sites the LM path keeps (its R001 pragmas): every
+stack of DTensors the ranks run meets operands of one placement and runs no
+collective.
 """
 import dataclasses
 import json
@@ -64,6 +75,13 @@ RWKV_RTOL = 1e-3
 # to bf16 (the reference's roundings): a reordered f32 sum flips entries by
 # one bf16 step (2^-8), in the caches and through them in decode's logits
 BF16_RTOL = 1e-2
+# Adafactor's streamed update on sharded leaves: llama3.2-1b's leaves over
+# this many f32 bytes (its 3-D layer stacks per layer, embed in 64 chunks
+# of rows; the norms' 2-D stacks stay whole)
+STREAMED, STREAM_BYTES = "llama3.2-1b", 16384
+# a guard against a hung reference subprocess only (it has no heartbeat):
+# far above its time on a loaded machine, far below the suite's limit
+REF_S = 900
 
 
 def overrides(arch: str) -> dict:
@@ -117,6 +135,9 @@ def _cases() -> list:
         cases.append({"name": arch, "kind": "train", "arch": arch,
                       "cfg": over, "params": weights,
                       "batch": _batch(cfg, B)})
+        if arch == STREAMED:
+            cases.append(dict(cases[-1], name="adafactor_streamed",
+                              stream_bytes=STREAM_BYTES))
         if arch == MOE:
             cases.append({"name": "moe_trap", "kind": "train", "arch": arch,
                           "cfg": over, "params": weights,
@@ -150,7 +171,7 @@ def _plain(case: dict) -> dict:
                 "decode": logits2.numpy()}
     tb = W.tensors(case["batch"])
     tb["tokens"] = tb["tokens"].long()
-    opt = make_optimizer(lm.cfg.optimizer)
+    opt = W.opt_of(case)
     newp, _, m = make_lm_train_step(lm, opt)(tp, opt.init(tp), tb)
     loss, grads = port_grads(lm, tp, tb)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
@@ -198,9 +219,9 @@ def runs(tmp_path_factory):
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                            text=True, env=env)
     cases = _cases()
-    stdout, stderr = ref.communicate(timeout=300)
+    stdout, stderr = ref.communicate(timeout=REF_S)
     assert ref.returncode == 0, stderr[-3000:]
-    out = {mesh: {} for mesh in MESHES}
+    out = {mesh: {"stacks": {}} for mesh in MESHES}
     plain = None
     for mesh, part in _jobs(cases):
         join = W.start_ranks({"mesh": MESHES[mesh], "cases": part},
@@ -213,19 +234,22 @@ def runs(tmp_path_factory):
                 plain = {c["name"]: _plain(c) for c in cases}
             finally:
                 torch.set_num_threads(threads)
-        out[mesh].update(join())
+        got = join()
+        for where, seen in got.pop("stacks").items():
+            out[mesh]["stacks"].setdefault(where, set()).update(seen)
+        out[mesh].update(got)
     return out, plain, json.loads(stdout.strip().splitlines()[-1])
 
 
 def _jobs(cases: list) -> list:
     """(mesh, cases) of each spawn, one after another: the (2, 2) mesh's
-    cases in two halves, so each join's deadline holds on a loaded
-    machine; the 3-axis mesh's (all but ``SLOW_3D`` and the MoE case) in
-    one."""
+    cases in two halves, the 3-axis mesh's (all but ``SLOW_3D``, the MoE
+    case and the streamed Adafactor) in one."""
     heavy = SLOW_3D + ("qwen2.5-32b", "deepseek-coder-33b")
     return [("2x2", [c for c in cases if c["arch"] not in heavy]),
             ("2x2", [c for c in cases if c["arch"] in heavy]),
-            ("2x2x1", [c for c in cases if c["name"] != "moe_trap"
+            ("2x2x1", [c for c in cases
+                       if c["name"] not in ("moe_trap", "adafactor_streamed")
                        and c["arch"] not in SLOW_3D])]
 
 
@@ -247,7 +271,11 @@ def leaves(tree, path=()):
     if mesh == "2x2" or arch not in SLOW_3D])
 def test_sharded_train_step_matches_plain_step(runs, mesh, arch):
     out, plain, _ = runs
-    got, want = out[mesh][arch], plain[arch]
+    assert_train_close(out[mesh][arch], plain[arch],
+                       RWKV_RTOL if arch == "rwkv6-7b" else LEAF_RTOL)
+
+
+def assert_train_close(got, want, bar):
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["grad_loss"], want["grad_loss"],
                                rtol=LOSS_RTOL)
@@ -256,9 +284,24 @@ def test_sharded_train_step_matches_plain_step(runs, mesh, arch):
     errs = {p: norm_rel(got["grads"][p], g) for p, g in want["grads"].items()}
     errs.update({f"new/{p}": norm_rel(a, b) for (p, a), (_, b) in
                  zip(leaves(got["params"]), leaves(want["params"]))})
-    bar = RWKV_RTOL if arch == "rwkv6-7b" else LEAF_RTOL
     bad = {p: e for p, e in errs.items() if e > bar}
     assert not bad, bad
+
+
+def test_sharded_streamed_adafactor_matches_plain_and_gathers_no_leaf(runs):
+    """Adafactor's streamed update (leaves over ``STREAM_BYTES``: the
+    pieces are the leading axis of a view) on sharded leaves: the step
+    matches the plain step with the same bars, and the update alone
+    all-gathers fewer elements than its factored statistics hold, so no
+    leaf or piece of one (slicing embed's 64 pieces out of its row-sharded
+    leaf gathered 8.45M elements per rank). On the (2, 2) mesh only."""
+    out, plain, _ = runs
+    got, want = out["2x2"]["adafactor_streamed"], plain["adafactor_streamed"]
+    big = {p: a.ndim for p, a in leaves(want["params"])
+           if a.size * 4 > STREAM_BYTES}
+    assert {2, 3} <= set(big.values()), big
+    assert_train_close(got, want, LEAF_RTOL)
+    assert got["update_gathered"] <= got["stats_numel"], got
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
@@ -285,3 +328,20 @@ def test_moe_chunks_follow_the_reference_rule(runs):
                                rtol=LEAF_RTOL)
     np.testing.assert_allclose(got["loss"], plain["moe_trap"]["loss"],
                                rtol=LOSS_RTOL)
+
+
+# the modules of the raw torch.stack sites the LM path keeps (R001
+# pragmas) that each mesh's cases reach (the (2, 2, 1) mesh runs no SSM arch)
+STACK_FILES = {"2x2": {"lm.py", "ssm.py"}, "2x2x1": {"lm.py"}}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_kept_stacks_meet_one_placement_and_run_no_collective(runs, mesh):
+    """Every ``torch.stack`` of DTensors the cases run (``_stack_trees``'
+    per-layer caches, mamba2's chunk states, rwkv6's step outputs) stacks
+    operands of one placement on a new axis, and DTensor runs no collective
+    for it: the premise of those sites' R001 pragmas."""
+    out, _, _ = runs
+    seen = out[mesh]["stacks"]
+    assert all(v == {(1, 0)} for v in seen.values()), seen
+    assert {w.split(":")[0] for w in seen} == STACK_FILES[mesh], seen
