@@ -95,7 +95,15 @@ which raises on failure:
      27 SpMM + 5 compensation launches per step, host and step ms. 8b: the
      row-sharded step over an NCCL process group of one rank (a file://
      init in a temp dir) against the plain step on the same batch: the
-     committed h and v bit for bit, loss and gradients at 8a's bar;
+     committed h and v bit for bit, loss and gradients at 8a's bar. 8c:
+     the step on a row × feature grid, an NCCL ``DeviceMesh`` (1, 1) over
+     (data, model) in 8b's group, the stores placed by
+     ``lmc_placement(features=True)`` (store rows fetched over the row
+     group, their features gathered over the feature group): 27 SpMM + 5
+     compensation launches per step, h and v bit for bit against 8b's
+     plain step, loss and gradients at 8a's bar, step ms beside 8b's and
+     the plain step's (one card cannot host two NCCL ranks: a split
+     feature axis is proved by the CPU gloo tests);
   9. LM serving — the LM zoo's prefill and cached decode (no kernel of ours
      runs here; every product is a PyTorch call). 9a: llama3.2-1b at its
      published widths (16 layers, d 2048, 32 heads / 8 KV, d_ff 8192,
@@ -148,7 +156,16 @@ which raises on failure:
      configuration on a mesh of one, each traced on meta tensors over a
      fake process group; argument, output, peak and collective bytes,
      FLOPs and trace time per device; the predicted peak beside 11a's
-     measured one, the FLOPs beside 10a's model FLOPs.
+     measured one, the FLOPs beside 10a's model FLOPs; and the GNN-LMC
+     cell (GCNII, 16M nodes, d 512, the grid step) on 16x16 and 2x16x16 as
+     two more processes, whose argument bytes a device must equal the
+     reference's 3,099,953,416 (its record) and 1,554,352,392 (by hand),
+     every collective kind non-zero. 11c: every kept raw ``torch.stack``
+     site of the LM (models/lm.py, models/ssm.py, found by their R001
+     pragmas) on this card's torch: the ten reduced archs' prefill and
+     decode dry-run cells on a fake 2x2x2 CUDA mesh, each stack of
+     DTensors recorded (``StackProbe``); each site must be reached, meet
+     one placement and run no collective.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
@@ -170,6 +187,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -983,15 +1001,17 @@ def _events(tr, kind: str) -> list:
     return [r for r in tr.history if r.get("event") == kind]
 
 
-def _assert_launches(label: str, tr, counts: dict) -> int:
+def _assert_launches(label: str, tr, counts: dict,
+                     executed: Optional[int] = None) -> int:
     """27 SpMM and 5 compensation launches per executed step: every step
     with a loss record, a replay included, and every step rejected by the
-    health gate after it ran."""
-    executed = (sum("loss" in r for r in tr.history)
-                + len(_events(tr, "health-rollback"))
-                + len(_events(tr, "health-skip-batch")))
+    health gate after it ran (of trainer ``tr``; or ``executed`` steps)."""
+    if executed is None:
+        executed = (sum("loss" in r for r in tr.history)
+                    + len(_events(tr, "health-rollback"))
+                    + len(_events(tr, "health-skip-batch")))
     spmm, comp = _per_step_launches()
-    print(f"phase 6{label} launches over {executed} executed steps: {counts}")
+    print(f"phase {label} launches over {executed} executed steps: {counts}")
     assert counts == {"ell_spmm": spmm * executed, "ell_spmm_resident": 0,
                       "lmc_compensate": comp * executed,
                       "lmc_compensate_resident": 0}, (counts, executed)
@@ -1048,7 +1068,7 @@ def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
         pinned = pipe.pinned_peak_bytes
         nbytes = sum(t.nbytes for t in tree_leaves(tr._state_tree()))
         tr.close()
-        _assert_launches("a", tr, counts)
+        _assert_launches("6a", tr, counts)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         base = _losses(tr)
@@ -1116,7 +1136,7 @@ def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
         tr.run(8)
         counts = _read_counts()
         tr.close()
-        _assert_launches("b", tr, counts)
+        _assert_launches("6b", tr, counts)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         evs = [(r["step"], r["event"]) for r in tr.history if "event" in r]
@@ -1159,7 +1179,7 @@ def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
             tr.run(10)
             counts = _read_counts()
             tr.close()
-            _assert_launches(f"c {name}", tr, counts)
+            _assert_launches(f"6c {name}", tr, counts)
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
             runs[name] = tr
@@ -1605,10 +1625,70 @@ def _phase_distributed(graph, sampler) -> dict:
               f"communicator's set-up, {dist_ms[0]:.1f} ms), the plain step "
               f"on the same batch {plain_ms:.1f} ms (synchronised); "
               f"launches {counts}")
+        del mine, owned, g2
+        torch.cuda.empty_cache()
+        _grid_step(gnn, params, data, batch, h0, v0, n,
+                   (l1, g1, plain), (dist_ms[1], plain_ms), launches)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+
+def _grid_step(gnn, params, data, batch, h0, v0, n, want, times,
+               launches: dict) -> None:
+    """Phase 8c: the step on a row × feature grid, an NCCL DeviceMesh (1, 1)
+    over (data, model) in 8b's process group: the stores placed by
+    ``lmc_placement(features=True)``, store rows fetched over the row
+    group and gathered over the feature group, against 8b's plain step."""
+    import torch
+    from repro_torch.checkpoint import reshard
+    from repro_torch.core import LMC, HistoricalState
+    from repro_torch.core.distributed import (commit_owned_rows,
+                                              make_distributed_train_step)
+    from repro_torch.dist import lmc_placement
+    from repro_torch.dist.mesh import grid_groups, make_mesh
+    l1, g1, plain = want
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rows, feats = grid_groups(mesh)
+    whole = {"store": (h0, v0), "x": data.x, "self_w": data.self_w}
+    mine = reshard(whole, lmc_placement(whole, features=True), group=rows,
+                   model_group=feats, device="cuda")
+    store = HistoricalState(*mine["store"])
+    assert store.h.shape == h0.shape, store.h.shape
+    gstep = make_distributed_train_step(gnn, LMC, n, group=rows,
+                                        model_group=feats, backend="ell")
+    _zero_counts()
+    grid_ms = []
+    for _ in range(2):   # a step never writes the store
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l3, g3, owned, _ = gstep(params, store, batch, mine["x"],
+                                 mine["self_w"])
+        torch.cuda.synchronize()
+        grid_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = _read_counts()
+    _add(launches, counts)
+    _assert_launches("8c", None, counts, executed=2)
+    commit_owned_rows(store, owned, n, group=rows)
+    assert torch.equal(plain.h, store.h) and torch.equal(plain.v, store.v)
+    torch.testing.assert_close(l3, l1, rtol=1e-4, atol=0)
+    worst = 0.0
+    for (name, a), b in zip(_named(g3, "grad").items(),
+                            _named(g1, "grad").values()):
+        worst = max(worst, _norm_rel(a, b))
+        assert _norm_rel(a, b) <= 2e-4, (name, _norm_rel(a, b))
+    print(f"phase 8c grid step on an NCCL mesh (1, 1) over (data, model): "
+          f"local stores {tuple(store.h.shape)} and "
+          f"{tuple(store.v.shape)}; {owned.gids.numel()} owned rows routed "
+          f"and committed, h and v equal to the plain step's bit for bit; "
+          f"loss {float(l3):.6f} vs {float(l1):.6f}; worst grad norm rel "
+          f"err {worst:.3g} (<= 2e-4); step with fetch, feature gather, "
+          f"all-reduce and route {grid_ms[1]:.1f} ms (first call "
+          f"{grid_ms[0]:.1f} ms), 8b's row step {times[0]:.1f} ms, the "
+          f"plain step {times[1]:.1f} ms (synchronised); one card cannot "
+          f"host two NCCL ranks, so a split feature axis is proved by the "
+          f"CPU gloo tests (tests/test_torch_distributed_grid.py), not here")
 
 
 LM_TOL = {"moe": 0.12, "hybrid": 0.05, "default": 0.02}  # tests/test_lm_archs.py:14
@@ -2273,6 +2353,12 @@ def _lm_train_one_rank_mesh() -> None:
     assert gn_rel <= 1e-3, (gnorms[0], LM10A["gnorm0"])
 
 
+# argument bytes a device of the GNN-LMC dry-run cell: the reference's
+# record experiments/dryrun/gnn_lmc_16x16.json, and the same count by hand
+# on 2x16x16 (tests/test_torch_dryrun_gnn.py)
+GNN_ARG_BYTES = {"16x16": 3_099_953_416, "2x16x16": 1_554_352_392}
+
+
 def _dryrun_cell(*flags: str) -> dict:
     """examples/multipod_dryrun_torch.py as a process; its JSON result."""
     env = {**os.environ,
@@ -2293,11 +2379,26 @@ def _lm_dryrun() -> None:
     base = ("--arch", LM_FULL, "--shape", "train_4k")
     cells = {"16x16": base + ("--single-pod",), "2x16x16": base,
              "1x1 (10a)": base + ("--mesh", "1x1", "--batch",
-                                  str(LM_TRAIN_BATCH))}
+                                  str(LM_TRAIN_BATCH)),
+             "gnn 16x16": ("--gnn", "--single-pod"), "gnn 2x16x16": ("--gnn",)}
     with cf.ThreadPoolExecutor(len(cells)) as ex:
         futs = {tag: ex.submit(_dryrun_cell, *flags)
                 for tag, flags in cells.items()}
         out = {tag: f.result() for tag, f in futs.items()}
+    for mesh, want in GNN_ARG_BYTES.items():
+        r = out.pop(f"gnn {mesh}")
+        assert r["status"] == "ok" and r["mesh"] == mesh, r
+        mem, coll = r["memory"], r["collectives"]
+        print(f"phase 11b dry run of the GNN-LMC cell ({r['shape']}, GCNII) "
+              f"on {mesh}: argument {mem['argument_bytes']} B a device "
+              f"(the reference's {want}), output {mem['output_bytes']} B, "
+              f"peak {mem['peak_bytes']} B; flops {r['flops']:.4e}; "
+              f"collectives " + ", ".join(f"{k} {v}" for k, v in
+                                          sorted(coll.items()))
+              + f"; traced in {r['step_s']:.1f} s")
+        assert mem["argument_bytes"] == want, (mesh, mem)
+        assert all(coll.get(k, 0) > 0 for k in
+                   ("all-to-all", "all-gather", "all-reduce")), coll
     for tag, r in out.items():
         assert r["status"] == "ok", r
         mem, coll = r["memory"], r["collectives"]
@@ -2317,9 +2418,90 @@ def _lm_dryrun() -> None:
           f"{one['flops'] / LM10A['flops']:.3f}")
 
 
+class StackProbe:
+    """While active, records every ``torch.stack`` of DTensors: per call
+    site (``file:line``), the set of (distinct operand placements, the
+    collectives the stack ran) seen there. (A copy of
+    ``tests/_torch_lm_dist.py``'s, kept here so this script needs nothing
+    of the tests.)"""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    def __enter__(self):
+        import torch
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.debug import CommDebugMode
+        self._orig = orig = torch.stack
+
+        def stack(tensors, *args, **kw):
+            tensors = list(tensors)
+            if not (tensors and isinstance(tensors[0], DTensor)):
+                return orig(tensors, *args, **kw)
+            frame = sys._getframe(1)
+            where = (f"{os.path.basename(frame.f_code.co_filename)}:"
+                     f"{frame.f_lineno}")
+            with CommDebugMode() as comm:
+                out = orig(tensors, *args, **kw)
+            self.seen.setdefault(where, set()).add(
+                (len({t.placements for t in tensors}),
+                 comm.get_total_counts()))
+            return out
+        torch.stack = stack
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.stack = self._orig
+
+
+def _kept_stack_sites() -> set:
+    """``file:line`` of every raw ``torch.stack`` kept under an R001 pragma
+    in the LM's model code (models/lm.py, models/ssm.py)."""
+    root = Path(__file__).resolve().parent / "src" / "repro_torch" / "models"
+    sites = set()
+    for name in ("lm.py", "ssm.py"):
+        lines = (root / name).read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "torch.stack(" in line and "lint: ok(R001)" in lines[i - 1]:
+                sites.add(f"{name}:{i + 1}")
+    return sites
+
+
+def _stack_probe() -> None:
+    """Phase 11c: every kept raw ``torch.stack`` site on the card's torch:
+    the ten reduced archs' prefill and decode dry-run cells on a fake
+    (2, 2, 2) CUDA mesh, each stack of DTensors recorded; each kept site
+    must be reached, meet one placement and run no collective."""
+    import logging
+    import torch
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.launch.dryrun import run_cell
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    t0 = time.time()
+    with StackProbe() as probe:
+        for shape in ("prefill_32k", "decode_32k"):
+            for arch in ARCH_NAMES:
+                r = run_cell(arch, shape, multi_pod=True, device="cuda",
+                             mesh_shape=(2, 2, 2), global_batch=8,
+                             seq_len=64, reduced=True, verbose=False)
+                assert r["status"] == "ok", r
+    sites = _kept_stack_sites()
+    for where in sorted(probe.seen):
+        print(f"phase 11c torch {torch.__version__}: torch.stack at {where}: "
+              f"(placements, collectives) seen {sorted(probe.seen[where])}")
+    assert set(probe.seen) == sites, (sorted(probe.seen), sorted(sites))
+    assert all(v == {(1, 0)} for v in probe.seen.values()), probe.seen
+    print(f"phase 11c every kept stack site ({', '.join(sorted(sites))}) "
+          f"meets one placement and runs no collective on torch "
+          f"{torch.__version__} (20 reduced cells on a fake 2x2x2 CUDA mesh, "
+          f"{time.time() - t0:.1f} s)")
+
+
 def _phase_lm_sharded() -> None:
-    """Phase 11: the LM on a device mesh (11a) and the dry run (11b); no
-    kernel of ours runs here."""
+    """Phase 11: the LM on a device mesh (11a), the dry run (11b) and the
+    kept stack sites on the card's torch (11c); no kernel of ours runs
+    here."""
     import torch
     t0 = time.time()
     _zero_counts()
@@ -2327,6 +2509,7 @@ def _phase_lm_sharded() -> None:
     _lm_train_one_rank_mesh()
     torch.cuda.empty_cache()
     _lm_dryrun()
+    _stack_probe()
     counts = _read_counts()
     assert not any(counts.values()), counts
     print(f"phase 11 time: {time.time() - t0:.1f} s; launches of the four "

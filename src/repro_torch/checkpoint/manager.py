@@ -54,7 +54,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import all_gather_blocks
-from repro_torch.dist.sharding import dp_axis_size, dp_rank, take_block
+from repro_torch.dist.sharding import (GridAxes, dp_axis_size, dp_rank,
+                                       take_block)
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 MANIFEST_FORMAT = 2   # 1 = pre-checksum manifests (still restorable)
@@ -375,7 +376,8 @@ class CheckpointManager:
         return leaves, manifest
 
 
-def reshard(tree: Any, placement: Any, *, group=None, device=None) -> Any:
+def reshard(tree: Any, placement: Any, *, group=None, model_group=None,
+            device=None) -> Any:
     """This rank's share of a whole (restored) tree, on ``device`` (None:
     the card): its row block of every row-blocked leaf and the whole of
     every replicated one, each a fresh tensor.
@@ -384,31 +386,47 @@ def reshard(tree: Any, placement: Any, *, group=None, device=None) -> Any:
     (``int``) where it is row-blocked and ``None`` where it is replicated
     (``repro_torch.dist.lmc_placement``). The blocks follow ``group``'s world
     size and this process's rank, whatever the world that saved the tree:
-    the restore path after the device count changed. Leaves may be numpy
-    arrays (``CheckpointManager.restore``) or tensors.
+    the restore path after the device count changed. A
+    :class:`~repro_torch.dist.sharding.GridAxes` leaf is also cut into the
+    feature block of this rank in ``model_group`` (whole without one).
+    Leaves may be numpy arrays (``CheckpointManager.restore``) or tensors.
     """
     dev = resolve_device(device)
     world, rank = dp_axis_size(group), dp_rank(group)
+    m_world, m_rank = dp_axis_size(model_group), dp_rank(model_group)
 
     def one(leaf, axis):
         if leaf is None:
             return None
         t = leaf if isinstance(leaf, torch.Tensor) \
             else torch.from_numpy(np.asarray(leaf))
-        return take_block(t, axis, world, rank).to(dev, copy=True)
+        return take_block(t, axis, world, rank, m_world,
+                          m_rank).to(dev, copy=True)
 
     return tree_map(one, tree, placement)
 
 
 def unshard(tree: Any, placement: Any, num_nodes: int, *,
-            group=None) -> Any:
+            group=None, model_group=None,
+            num_features: Optional[int] = None) -> Any:
     """The whole tree from every rank's share: each row-blocked leaf of
     ``num_nodes`` rows gathered from the ranks of ``group`` (every rank
     must call it and every rank gets the whole), replicated leaves as they
-    are. The inverse of :func:`reshard`; rank 0 then saves the result."""
+    are. A :class:`~repro_torch.dist.sharding.GridAxes` leaf first gathers
+    its ``num_features`` features within ``model_group``, then its rows
+    within ``group``. The inverse of :func:`reshard`; rank 0 then saves the
+    result."""
+    if model_group is not None and num_features is None:
+        raise ValueError("unshard over a feature group needs num_features")
+
     def one(leaf, axis):
         if leaf is None or axis is None:
             return leaf
+        if isinstance(axis, GridAxes):
+            if model_group is not None:
+                leaf = all_gather_blocks(leaf, num_features, model_group,
+                                         axis.feature)
+            axis = axis.row
         return all_gather_blocks(leaf, num_nodes, group, axis)
 
     return tree_map(one, tree, placement)

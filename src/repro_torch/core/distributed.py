@@ -36,8 +36,8 @@ import torch
 from repro_torch.core.history import HistoricalState
 from repro_torch.core.lmc import AGG_BACKENDS, Batch, make_train_step
 from repro_torch.core.methods import MBMethod
-from repro_torch.dist.collectives import (all_reduce_sum, fetch_rows,
-                                          route_rows)
+from repro_torch.dist.collectives import (all_gather_blocks, all_reduce_sum,
+                                          fetch_rows, route_rows)
 from repro_torch.dist.sharding import dp_axis_size, dp_rank, row_block
 from repro_torch.graph.structure import PaddedSubgraph
 from repro_torch.kernels import ell_from_coo
@@ -119,8 +119,10 @@ class OwnedRows(NamedTuple):
 
 
 def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
-                                *, group=None, backend: str = "segment",
-                                stream: Optional[bool] = None) -> Callable:
+                                *, group=None, model_group=None,
+                                backend: str = "segment",
+                                stream: Optional[bool] = None,
+                                splits: Optional[tuple] = None) -> Callable:
     """Build ``step(params, store, batch, x, self_w)`` for one rank.
 
     ``batch`` is this rank's own device batch (its subgraph, with global
@@ -130,17 +132,46 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
     of ``group`` calls the step once per step; all tensors live on the
     device the group's backend serves.
 
+    On a row × feature grid (``model_group``, the ranks that share this
+    rank's row block; ``group`` is then the ranks that share its feature
+    block: ``dist.mesh.grid_groups``) the stores are also feature-blocked:
+    rank (r, c) holds ``(L, n_r, d_c)``, row block r of feature block c by
+    the ceil rule over ``model_group`` (``lmc_placement(features=True)``),
+    and the ranks of one feature group hold the same batch and the same
+    ``x`` and ``self_w`` blocks. The step fetches feature block c of the
+    store rows it reads over ``group``, gathers the full features over
+    ``model_group``, runs the step of its row rank on them (so every rank
+    of a feature group computes the same step), reduces over ``group``
+    only, and routes columns c of its refreshed rows to their owners.
+
     Returns ``(loss, grads, owned, metrics)``, what ``make_train_step`` on
-    the stacked batch (``stack_batches`` of every rank's subgraph) returns
-    up to f32 summation order: ``loss`` and ``grads`` are the mean over the
-    ranks (all-reduced, the same on every rank), ``metrics["train_acc"]`` a
-    ratio of summed counts, and ``owned`` the :class:`OwnedRows` this rank
-    owns of every rank's refreshed batch rows (None when the method writes
-    no store), for :func:`commit_owned_rows`.
+    the stacked batch (``stack_batches`` of every row rank's subgraph)
+    returns up to f32 summation order: ``loss`` and ``grads`` are the mean
+    over the row ranks (all-reduced, the same on every rank),
+    ``metrics["train_acc"]`` a ratio of summed counts, and ``owned`` the
+    :class:`OwnedRows` this rank owns of every rank's refreshed batch rows
+    (feature block c of them on a grid; None when the method writes no
+    store), for :func:`commit_owned_rows`.
+
+    ``splits``, for the dry run only: ``(fetch, route)``, the rows asked of
+    each row rank and sent to each, known in advance; the exchanges then
+    skip their size exchange, their id check and the batch mask (see
+    ``dist.collectives``).
     """
     inner = make_train_step(gnn, method, num_nodes, backend=backend,
                             stream=stream)
     L = gnn.num_layers
+    fetch_splits, route_splits = splits if splits is not None else (None,
+                                                                    None)
+    d = gnn.hidden_dim
+    c0, c1 = row_block(d, dp_axis_size(model_group), dp_rank(model_group))
+
+    def full_features(rows: torch.Tensor) -> torch.Tensor:
+        """(k, L, d_c) fetched store rows -> (k, L, d) over the feature
+        group, in feature-block order."""
+        if model_group is None:
+            return rows
+        return all_gather_blocks(rows, d, model_group, axis=2)
 
     def step(params: dict, store: Optional[HistoricalState], batch: Batch,
              x: torch.Tensor, self_w: torch.Tensor):
@@ -152,12 +183,14 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
         shards = [x, self_w]
         if backend != "ti":
             shards += [store.h.transpose(0, 1), store.v.transpose(0, 1)]
-        got = fetch_rows(tuple(shards), ext, num_nodes, group)
+        got = list(fetch_rows(tuple(shards), ext, num_nodes, group,
+                              splits=fetch_splits))
         local_store = None
         if backend != "ti":   # the kernels take contiguous (L, rows, d)
             local_store = HistoricalState(
-                h=got[2].transpose(0, 1).contiguous(),
-                v=got[3].transpose(0, 1).contiguous())
+                h=full_features(got[2]).transpose(0, 1).contiguous(),
+                v=full_features(got[3]).transpose(0, 1).contiguous())
+        del got[2:]
         # local ids: batch rows 0..nb-1, halo rows nb..nb+nh-1; edges and
         # the ELL are batch-local already
         ids = torch.arange(nb + nh, dtype=batch.batch_gids.dtype,
@@ -185,10 +218,12 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
 
         owned = None
         if rows is not None:
-            payload = (rows.h.transpose(0, 1),) + (
-                (rows.v.transpose(0, 1),) if L > 1 else ())
+            cols = slice(c0, c1) if model_group is not None else slice(None)
+            payload = (rows.h[..., cols].transpose(0, 1),) + (
+                (rows.v[..., cols].transpose(0, 1),) if L > 1 else ())
             gids, got_rows = route_rows(payload, batch.batch_gids,
-                                        batch.batch_mask, num_nodes, group)
+                                        batch.batch_mask, num_nodes, group,
+                                        splits=route_splits)
             owned = OwnedRows(
                 gids, got_rows[0].transpose(0, 1),
                 got_rows[1].transpose(0, 1) if L > 1 else None)
@@ -201,7 +236,8 @@ def commit_owned_rows(store: HistoricalState, owned: OwnedRows,
                       num_nodes: int, group=None) -> HistoricalState:
     """Write a distributed step's :class:`OwnedRows` into this rank's row
     block of the stores in place (``commit_rows``'s semantics, offset by
-    the block's start). Returns ``store``."""
+    the block's start; on a grid ``group`` is the row group and the rows
+    are this rank's feature block). Returns ``store``."""
     start, _ = row_block(num_nodes, dp_axis_size(group), dp_rank(group))
     idx = owned.gids.to(store.h.device) - start
     store.h.index_copy_(1, idx, owned.h.to(store.h.dtype))

@@ -10,15 +10,18 @@ and produces rows that other ranks own (the refreshed batch rows):
   all_gather_blocks — every rank's block, whole (rank 0 saves whole trees).
 
 Each exchange is two ``all_to_all_single`` calls: the split sizes first, then
-the payload. ``rows``/``shard`` may be one tensor or a tuple of tensors whose
-leading axis is the row axis; a tuple travels on one plan. Without a process
+the payload. A caller that knows the split sizes already (the dry run, which
+traces a step on meta tensors, passes a uniform spread) gives them as
+``splits``: the size exchange and the id check are skipped.
+``rows``/``shard`` may be one tensor or a tuple of tensors whose leading
+axis is the row axis; a tuple travels on one plan. Without a process
 group the exchanges are local indexing; with one, even of a single rank,
 they are the group's collectives. Tensors must be on the device the group's
 backend serves (the CPU for gloo, the card for NCCL).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -51,10 +54,15 @@ def _all_to_all(x: torch.Tensor, out_rows: int, out_splits: list,
     return out
 
 
-def _plan(gids: torch.Tensor, n: int, group) -> _Plan:
-    """Sort the requested ids by owner and tell each owner what it is asked."""
+def _plan(gids: torch.Tensor, n: int, group,
+          splits: Optional[Sequence[int]] = None) -> _Plan:
+    """Sort the requested ids by owner and tell each owner what it is
+    asked. ``splits``, when given, is the number of ids asked of each rank
+    and asked by each rank (the same both ways): no sizes are exchanged and
+    the ids are not checked."""
     gids = gids.long()
-    if gids.numel() and (int(gids.min()) < 0 or int(gids.max()) >= n):
+    if splits is None and gids.numel() and (
+            int(gids.min()) < 0 or int(gids.max()) >= n):
         raise ValueError(f"row ids must lie in [0, {n})")
     world = dp_axis_size(group)
     owner = owner_of(gids, n, world)
@@ -62,23 +70,31 @@ def _plan(gids: torch.Tensor, n: int, group) -> _Plan:
     if not distributed(group):
         send = [int(gids.numel())]
         return _Plan(order, send, send, gids[order])
-    send_t = torch.bincount(owner, minlength=world)
-    recv_t = torch.empty_like(send_t)
-    dist.all_to_all_single(recv_t, send_t, group=group)
-    send, recv = send_t.tolist(), recv_t.tolist()
+    if splits is not None:
+        if len(splits) != world:
+            raise ValueError(f"{len(splits)} split sizes for a group of "
+                             f"{world} ranks")
+        send = recv = [int(s) for s in splits]
+    else:
+        send_t = torch.bincount(owner, minlength=world)
+        recv_t = torch.empty_like(send_t)
+        dist.all_to_all_single(recv_t, send_t, group=group)
+        send, recv = send_t.tolist(), recv_t.tolist()
     recv_gids = _all_to_all(gids[order], sum(recv), recv, send, group)
     return _Plan(order, send, recv, recv_gids)
 
 
-def fetch_rows(shard: Rows, gids: torch.Tensor, n: int,
-               group=None) -> Rows:
+def fetch_rows(shard: Rows, gids: torch.Tensor, n: int, group=None, *,
+               splits: Optional[Sequence[int]] = None) -> Rows:
     """Rows ``gids`` (global ids in ``[0, n)``) of the row-blocked tensor(s)
     ``shard``, of which this rank holds its block, in request order.
 
     Every rank of ``group`` must call it (with its own ``gids``, possibly
     none). Returns a tensor of ``len(gids)`` rows, or a tuple for a tuple.
+    ``splits``: the rows asked of (and by) each rank, known in advance
+    (see :func:`_plan`).
     """
-    plan = _plan(gids, n, group)
+    plan = _plan(gids, n, group, splits)
     start, _ = row_block(n, dp_axis_size(group), dp_rank(group))
     local = plan.recv_gids - start
 
@@ -94,18 +110,25 @@ def fetch_rows(shard: Rows, gids: torch.Tensor, n: int,
 
 
 def route_rows(rows: Rows, gids: torch.Tensor, mask: torch.Tensor, n: int,
-               group=None) -> tuple[torch.Tensor, Rows]:
+               group=None, *, splits: Optional[Sequence[int]] = None
+               ) -> tuple[torch.Tensor, Rows]:
     """Send each row ``rows[i]`` with ``mask[i] > 0`` to the rank that owns
     global id ``gids[i]``; padded rows (mask 0, or an id outside ``[0, n)``)
     have no owner and are dropped.
 
     Every rank of ``group`` must call it. Returns ``(got_gids, got_rows)``:
     the global ids (int64) and rows this rank owns and was sent, in the
-    order of the senders' ranks.
+    order of the senders' ranks. With ``splits`` (the rows sent to and by
+    each rank, known in advance: see :func:`_plan`) every row is sent, its
+    id clipped into ``[0, n)``, and the mask is not read.
     """
-    keep = (mask > 0) & (gids >= 0) & (gids < n)
-    gids = gids[keep].long()
-    plan = _plan(gids, n, group)
+    if splits is None:
+        keep = (mask > 0) & (gids >= 0) & (gids < n)
+        gids = gids[keep].long()
+    else:
+        keep = slice(None)
+        gids = gids.long().clamp(0, n - 1)
+    plan = _plan(gids, n, group, splits)
 
     def one(r: torch.Tensor) -> torch.Tensor:
         sent = r[keep][plan.order]

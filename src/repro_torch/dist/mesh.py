@@ -42,6 +42,21 @@ def make_production_mesh(*, multi_pod: bool = False,
     return make_mesh(shape, axes, device_type=device_type)
 
 
+def grid_groups(mesh: DeviceMesh) -> tuple:
+    """``(row group, feature group)`` of this rank on a ``data`` × ``model``
+    mesh (``pod`` folded into the rows): the row group is the ranks that
+    share this rank's ``model`` coordinate, the feature group those that
+    share its row. A mesh without a ``model`` axis has no feature group
+    (None)."""
+    names = tuple(mesh.mesh_dim_names)
+    rows = tuple(a for a in ("pod", "data") if a in names)
+    if not rows:
+        raise ValueError(f"mesh axes {names} have no row axis (pod, data)")
+    row_mesh = mesh[rows] if len(rows) == 1 else mesh[rows]._flatten()
+    feat = mesh["model"].get_group() if "model" in names else None
+    return row_mesh.get_group(), feat
+
+
 @contextlib.contextmanager
 def fake_world(n: int):
     """A ``"fake"`` process group of ``n`` ranks in which this process is

@@ -29,10 +29,18 @@ axis of a row-blocked leaf (an ``int``) or ``None`` for a replicated one. The
 stores ``h`` and ``v`` and the features ``x`` and ``self_w`` are
 row-blocked; parameters and optimizer state are replicated
 (:func:`lmc_placement`, the counterpart of ``spmd_shardings``).
+
+On a row × feature process grid (``data`` × ``model``, ``pod`` folded into
+the rows; ``dist.mesh.grid_groups``) the stores are blocked on both: rank
+(r, c) holds row block r of feature block c, by the same ceil rule over the
+feature group. Their placement leaf is a :class:`GridAxes`;
+``lmc_placement(tree, features=True)`` names it. ``x`` and ``self_w`` stay
+row-blocked, whole in their features, as the reference places them.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Callable, Optional, Sequence
 
@@ -47,8 +55,20 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
 DATA_AXES = ("pod", "data")
 MODEL_AXIS = "model"
 
+
+@dataclasses.dataclass(frozen=True)
+class GridAxes:
+    """The placement of a leaf blocked over a row × feature grid: its node
+    axis ``row`` over the row group, its feature axis ``feature`` over the
+    feature group."""
+    row: int
+    feature: int
+
+
 # node axis of each row-blocked leaf of an LMC state tree
 ROW_AXES = {"store": (1, 1), "x": 0, "self_w": 0}
+# the same on a row × feature grid: the stores (L, n, d) on both axes
+GRID_AXES = {"store": (GridAxes(1, 2), GridAxes(1, 2)), "x": 0, "self_w": 0}
 
 
 def distributed(group=None) -> bool:
@@ -98,11 +118,14 @@ def owner_of(gids, n: int, world: int):
     return np.asarray(gids, np.int64) // b
 
 
-def lmc_placement(tree: dict) -> dict:
+def lmc_placement(tree: dict, *, features: bool = False) -> dict:
     """The placement of an LMC state tree, a dict with some of the keys
     ``params``, ``opt`` (replicated: every rank applies the same all-reduced
-    update), ``store`` (``(h, v)``, row-blocked on axis 1), ``x`` and
-    ``self_w`` (row-blocked on axis 0). Other keys are replicated."""
+    update), ``store`` (``(h, v)``, row-blocked on axis 1; with
+    ``features``, also feature-blocked on axis 2: :class:`GridAxes`), ``x``
+    and ``self_w`` (row-blocked on axis 0). Other keys are replicated."""
+    axes = GRID_AXES if features else ROW_AXES
+
     def replicated(t):
         if isinstance(t, dict):
             return {k: replicated(v) for k, v in t.items()}
@@ -110,15 +133,21 @@ def lmc_placement(tree: dict) -> dict:
             return type(t)(replicated(v) for v in t)
         return None
 
-    return {k: ROW_AXES[k] if k in ROW_AXES else replicated(v)
+    return {k: axes[k] if k in axes else replicated(v)
             for k, v in tree.items()}
 
 
-def take_block(leaf, axis: Optional[int], world: int, rank: int):
+def take_block(leaf, axis, world: int, rank: int, model_world: int = 1,
+               model_rank: int = 0):
     """Rank ``rank``'s row block of ``leaf`` along ``axis`` (the whole leaf
-    when ``axis`` is None)."""
+    when ``axis`` is None). For a :class:`GridAxes` placement, row block
+    ``rank`` of ``world`` and feature block ``model_rank`` of
+    ``model_world``."""
     if axis is None:
         return leaf
+    if isinstance(axis, GridAxes):
+        rows = take_block(leaf, axis.row, world, rank)
+        return take_block(rows, axis.feature, model_world, model_rank)
     start, stop = row_block(leaf.shape[axis], world, rank)
     idx = [slice(None)] * leaf.ndim
     idx[axis] = slice(start, stop)

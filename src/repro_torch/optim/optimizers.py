@@ -23,11 +23,12 @@ with the reference's streamed paths for big leaves), and
 from __future__ import annotations
 
 import dataclasses
+import math
 from functools import partial
 from typing import Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.dist.sharding import mesh_tensor
 from repro_torch.models.spec import PSpec, abstract, tree_map as _spec_map
@@ -314,46 +315,148 @@ def _sq_einsum(g: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
     return (gf * gf).sum() if axis is None else (gf * gf).sum(axis)
 
 
+def _f32_copy(t: torch.Tensor) -> torch.Tensor:
+    """A fresh f32 copy of ``t`` (``float()`` of an f32 tensor is itself)."""
+    return t.to(torch.float32, copy=True)
+
+
+class _Local:
+    """A leaf's local shard, its global offset, and sums over the ranks
+    that hold the leaf's other blocks. A plain tensor is its own shard."""
+
+    def __init__(self, t: torch.Tensor, placements=None):
+        self.shape = tuple(t.shape)
+        if not isinstance(t, DTensor):
+            self.mesh, self.plc, self.t = None, (), t
+            self.offset = (0,) * t.ndim
+            return
+        if placements is not None and list(t.placements) != list(placements):
+            raise ValueError(f"a leaf of shape {self.shape} is placed "
+                             f"{t.placements}, its update needs "
+                             f"{list(placements)}")
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        self.mesh, self.plc, self.t = t.device_mesh, tuple(t.placements), \
+            t.to_local()
+        _, self.offset = compute_local_shape_and_global_offset(
+            t.shape, self.mesh, self.plc)
+
+    def sharding(self, dim: int) -> list:
+        """The mesh dims that shard tensor dim ``dim``."""
+        nd = len(self.shape)
+        return [i for i, p in enumerate(self.plc)
+                if isinstance(p, Shard) and p.dim % nd == dim % nd]
+
+    def sum(self, x: torch.Tensor, dims) -> torch.Tensor:
+        """``x``, a partial sum over this shard's part of tensor dims
+        ``dims``, summed over the ranks that hold the other parts."""
+        if self.mesh is None:
+            return x
+        from torch.distributed import _functional_collectives as funcol
+        for i in sorted({i for d in dims for i in self.sharding(d)}):
+            x = funcol.wait_tensor(funcol.all_reduce(x, "sum",
+                                                     (self.mesh, i)))
+        return x
+
+    def placements_without(self, dim: int) -> list:
+        """The placements of this leaf's statistics over all dims but
+        ``dim``: a shard of a dim past ``dim`` moves down by one."""
+        nd = len(self.shape)
+        out = []
+        for p in self.plc:
+            d = p.dim % nd if isinstance(p, Shard) else None
+            out.append(Replicate() if d is None or d == dim
+                       else Shard(d - (d > dim)))
+        return out
+
+    def wrap(self, local: torch.Tensor, plc, shape) -> torch.Tensor:
+        if self.mesh is None:
+            return local
+        return DTensor.from_local(local, self.mesh, plc, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _row_pieces(rows: int, start: int, size: int):
+    """``(a, b, k)``: the local rows ``[a, b)`` of a shard of ``rows``
+    rows that starts at global row ``start``, cut where global pieces of
+    ``size`` rows end; ``k`` is the global piece."""
+    a = 0
+    while a < rows:
+        k = (start + a) // size
+        b = min(rows, (k + 1) * size - start)
+        yield a, b, k
+        a = b
+
+
+def _streamed_sq(g: torch.Tensor, stream_bytes: int) -> torch.Tensor:
+    """Σ g² of a big leaf, in f32, one piece of its leading axis at a time
+    (at most ``stream_bytes`` of f32), summed over the ranks of a sharded
+    leaf: a replicated scalar."""
+    loc = _Local(g)
+    t = loc.t
+    per_row = max(1, t[0].numel() * 4) if t.shape[0] else 1
+    step = max(1, stream_bytes // per_row)
+    acc = torch.zeros((), dtype=torch.float32, device=t.device)
+    with torch.no_grad():
+        for a in range(0, t.shape[0], step):
+            piece = _f32_copy(t[a:a + step]).reshape(-1)
+            acc = acc + torch.dot(piece, piece)
+    acc = loc.sum(acc, range(t.ndim))
+    return loc.wrap(acc, [Replicate()] * len(loc.plc), ())
+
+
 def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
                       clip=1.0, wd=0.0, stream_bytes=1 << 27):
     """Adafactor as the reference computes it.
 
     * global-norm clip folded into the per-leaf update
     * factored second-moment statistics for leaves of ndim >= 2
-    * leaves of more than ``stream_bytes`` in f32 get the numbers of the
-      reference's pieces: a leaf of ndim >= 3 is updated per slice of its
-      leading axis (its relative-RMS clip is per layer), a bigger 2-D leaf
-      in up to 64 chunks of rows (the clip is per chunk; the row
-      statistics' mean and the column statistics stay whole-leaf).
+    * leaves of more than ``stream_bytes`` in f32 are streamed as the
+      reference's ``jax.lax.map`` streams them, one piece at a time, so
+      each f32 temporary is one piece: a leaf of ndim >= 3 per slice of its
+      leading axis (its relative-RMS clip is per slice), a 2-D leaf in up
+      to 64 chunks of rows (the clip is per chunk; the row statistics'
+      mean and the column statistics, the mean of the chunks' means, stay
+      whole-leaf).
 
-    The pieces are the leading axis of a view, not slices: one batched
-    pass, in which a sharded leaf's ranks each work on their own rows and
-    DTensor reduces the statistics over the sharded dims (a slice of a
-    row-sharded leaf, and a ``cat`` of the pieces, would gather it). Its
-    f32 temporaries are the whole local shard's, not one piece's.
+    A streamed leaf that is a DTensor is walked over the pieces of its
+    local shard, written into a local output: nothing slices the DTensor
+    or concatenates pieces (either would gather the leaf). The statistics
+    that span shards (the sums behind the row and column statistics, the
+    rows' mean, each piece's RMS) are summed over the ranks that hold the
+    leaf's other blocks explicitly, once per leaf and pass.
     """
-    # each leaf's Σg² over all its dims at once: a reshape(-1) of a sharded
-    # leaf would gather it
-    gn = torch.sqrt(sum(_replicated(_sq_einsum(g))
-                        for g in tree_leaves(grads)))
+    # each leaf's Σg² over all its dims at once (a reshape(-1) of a sharded
+    # leaf would gather it); a big leaf's one piece at a time
+    def leaf_sq(g):
+        if g.numel() * 4 > stream_bytes and g.ndim >= 2:
+            return _streamed_sq(g, stream_bytes)
+        return _replicated(_sq_einsum(g))
+
+    gn = torch.sqrt(sum(leaf_sq(g) for g in tree_leaves(grads)))
     scale = torch.clamp(clip / torch.clamp(gn, min=1e-9), max=1.0)
     cnt = state["count"] + 1
     t = cnt.float()
     beta = 1.0 - torch.pow(t, -decay)
     s2 = scale * scale
 
-    def rms_clip(u, per_piece=False):
-        """The relative-RMS clip: over all of ``u``, or per slice of its
-        leading axis."""
-        dims = tuple(range(1, u.ndim)) if per_piece else tuple(range(u.ndim))
-        rms_u = torch.sqrt(torch.mean(u * u, dims, keepdim=per_piece)
-                           + 1e-12)
-        return u / torch.clamp(rms_u, min=1.0)
+    def rms_clip(u):
+        return u / torch.clamp(torch.sqrt(torch.mean(u * u) + 1e-12),
+                               min=1.0)
 
     def new_param(p, u):
         return ((1.0 - lr * wd) * p.float() - lr * u).to(p.dtype)
 
-    def upd(p, g, vr, vc, per_piece=False):
+    def upd(p, g, vr, vc):
         if g.ndim >= 2:
             vr2 = beta * vr + (1 - beta) * (s2 * _sq_einsum(g, g.ndim - 1)
                                             / g.shape[-1] + eps)
@@ -362,44 +465,104 @@ def _adafactor_update(grads, state, params, lr, *, decay=0.8, eps=1e-30,
             denom = torch.clamp(vr2.mean(-1, keepdim=True), min=eps)
             r_fac = torch.rsqrt(torch.clamp(vr2 / denom, min=eps))[..., None]
             c_fac = torch.rsqrt(torch.clamp(vc2, min=eps))[..., None, :]
-            u = rms_clip(g.float() * scale * r_fac * c_fac, per_piece)
+            u = rms_clip(g.float() * scale * r_fac * c_fac)
             return new_param(p, u), vr2, vc2
         vr2 = beta * vr + (1 - beta) * (s2 * g.float() ** 2 + eps)
         u = g.float() * scale * torch.rsqrt(torch.clamp(vr2, min=eps))
         return new_param(p, rms_clip(u)), vr2, vc
 
-    def upd_chunks(p, g, vr, vc, chunks):
-        """A 2-D leaf as ``chunks`` pieces of rows: (chunks, n, cols)."""
-        rows, cols = p.shape
-        n = rows // chunks
-        p3, g3 = p.reshape(chunks, n, cols), g.reshape(chunks, n, cols)
-        # the column statistics: the mean of the pieces' means
-        vc_parts = _sq_einsum(g3, 1) / n
-        vc2 = beta * vc + (1 - beta) * (s2 * vc_parts.mean(0) + eps)
-        vr2 = beta * vr.reshape(chunks, n) + (1 - beta) * (
-            s2 * _sq_einsum(g3, 2) / cols + eps)
-        denom = torch.clamp(vr2.mean(), min=eps)
-        r_fac = torch.rsqrt(torch.clamp(vr2 / denom, min=eps))[..., None]
-        c_fac = torch.rsqrt(torch.clamp(vc2, min=eps))
-        u = rms_clip(g3.float() * scale * r_fac * c_fac, per_piece=True)
-        return (new_param(p3, u).reshape(p.shape), vr2.reshape(vr.shape),
-                vc2)
+    sc, bt, lr_, s2_ = (_loc(x) for x in (scale, beta, lr, s2))
+
+    @torch.no_grad()
+    def upd_streamed(p, g, vr, vc, chunks):
+        """One big leaf, one piece of its local shard at a time: pieces are
+        slices of the leading axis (``chunks`` None) or ``chunks`` pieces
+        of rows (2-D)."""
+        P = _Local(p)
+        shape, nd = P.shape, len(P.shape)
+        size, n_pieces = ((1, shape[0]) if chunks is None     # slices
+                          else (shape[0] // chunks, chunks))  # row chunks
+        # the statistics are placed as the leaf without its last (vr) or
+        # next-to-last (vc) axis, the gradient as the leaf
+        vr_plc, vc_plc = (P.placements_without(nd - 1),
+                          P.placements_without(nd - 2))
+        lg = _Local(g, P.plc).t
+        VR, VC = _Local(vr, vr_plc), _Local(vc, vc_plc)
+        lp = P.t
+        pieces = list(_row_pieces(lp.shape[0], P.offset[0], size))
+        dev = lp.device
+        # pass 1: the sums of squares behind the row and column statistics
+        rowsq = torch.empty(lp.shape[:-1], dtype=torch.float32, device=dev)
+        if chunks is None:
+            colsq = torch.empty(lp.shape[:-2] + lp.shape[-1:],
+                                dtype=torch.float32, device=dev)
+        else:
+            colsq = torch.zeros(lp.shape[-1:], dtype=torch.float32,
+                                device=dev)
+        for a, b, _ in pieces:
+            sq = _f32_copy(lg[a:b]).square_()
+            rowsq[a:b] = sq.sum(-1)
+            if chunks is None:
+                colsq[a:b] = sq.sum(-2)
+            else:   # the chunk's column means, summed over the chunks
+                colsq += sq.sum(0) / size
+            del sq
+        # the statistics, in place in those buffers (the reference's
+        # beta·v + (1 - beta)·(s2·Σ/n + eps), its sums in its order)
+        vr2 = P.sum(rowsq, [nd - 1]).mul_(s2_).div_(shape[-1]).add_(eps)
+        vr2 = vr2.mul_(1 - bt).add_(bt * VR.t)
+        if chunks is None:
+            vc2 = P.sum(colsq, [nd - 2]).mul_(s2_).div_(shape[-2])
+        else:   # s2 times the mean of the chunks' means
+            vc2 = P.sum(colsq, [0]).div_(chunks).mul_(s2_)
+        vc2 = vc2.add_(eps).mul_(1 - bt).add_(bt * VC.t)
+        # the rows' mean: per slice (over its rows), or over the whole leaf
+        if chunks is None:
+            denom = P.sum(vr2.sum(-1, keepdim=True), [nd - 2]) / shape[-2]
+        else:
+            denom = P.sum(vr2.sum(), [0]) / shape[0]
+        denom = torch.clamp(denom, min=eps)
+        r_fac = torch.div(vr2, denom).clamp_(min=eps).rsqrt_()[..., None]
+        c_fac = vc2.clamp(min=eps).rsqrt_()
+        c_fac = c_fac[..., None, :] if chunks is None else c_fac[None, :]
+        n_elem = math.prod(shape) // n_pieces
+
+        def u_of(a, b):
+            u = _f32_copy(lg[a:b]).mul_(sc).mul_(r_fac[a:b])
+            return u.mul_(c_fac[a:b] if chunks is None else c_fac)
+
+        # pass 2: each piece's Σu², summed over the piece's ranks
+        usq = torch.zeros(n_pieces, dtype=torch.float32, device=dev)
+        for a, b, k in pieces:
+            u = u_of(a, b).reshape(-1)
+            usq[k] += torch.dot(u, u)
+            del u
+        rms = torch.sqrt(P.sum(usq, range(nd)) / n_elem + 1e-12)
+        div = torch.clamp(rms, min=1.0)
+        # pass 3: the update, written into the local output
+        out = torch.empty_like(lp)
+        for a, b, k in pieces:
+            u = u_of(a, b).div_(div[k]).mul_(lr_)
+            w = _f32_copy(lp[a:b]).mul_(1.0 - lr_ * wd).sub_(u)
+            out[a:b].copy_(w)
+            del u, w
+        return (P.wrap(out, P.plc, shape), VR.wrap(vr2, vr_plc, vr.shape),
+                VC.wrap(vc2, vc_plc, vc.shape))
 
     def upd_leaf(p, g, vr, vc):
-        if p.numel() * 4 <= stream_bytes:
+        if p.numel() * 4 <= stream_bytes or p.ndim < 2:
             return upd(p, g, vr, vc)
         if p.ndim >= 3:
-            return upd(p, g, vr, vc, per_piece=True)
+            return upd_streamed(p, g, vr, vc, None)
         chunks = next((c for c in (64, 32, 16, 8, 4, 2) if p.shape[0] % c == 0
                        and p.numel() * 4 // c <= stream_bytes), 1)
         if chunks == 1:
             return upd(p, g, vr, vc)
-        return upd_chunks(p, g, vr, vc, chunks)
+        return upd_streamed(p, g, vr, vc, chunks)
 
     outs = tree_map(upd_leaf, params, grads, state["vr"], state["vc"])
     return _part(outs, 0), {"vr": _part(outs, 1), "vc": _part(outs, 2),
                             "count": cnt}, gn
-
 
 # -------------------------------------------------------------------- factory
 def sgd(lr=1e-2, **kw) -> Optimizer:
