@@ -2371,13 +2371,28 @@ def _dryrun_cell(*flags: str) -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+# the LM train_4k cells' peak bytes a device: the reference's plan
+# (repro.launch.dryrun.run_cell, jax 0.9.0, 512 XLA host devices: argument
+# + output + temp - alias of memory_analysis()), and the port's bar: 60% of
+# an 80 GB card for qwen2.5-32b, no higher than before the per-layer
+# activations were freed for llama3.2-1b (PERF.md section 5)
+LM_TRAIN_PEAKS = {   # tag -> (arch, the reference's peak, the port's bar)
+    "16x16": (LM_FULL, 7_762_768_532, 9_484_912_772),
+    "2x16x16": (LM_FULL, 3_947_581_508, 4_759_287_812),
+    "qwen 16x16": ("qwen2.5-32b", 19_136_018_492, 48_000_000_000)}
+
+
 def _lm_dryrun() -> None:
     """Phase 11b: the dry run of llama3.2-1b's train_4k on both production
-    meshes and of 10a's configuration on a mesh of one, three processes at
-    once; the predicted peak and FLOPs beside 11a's and 10a's."""
+    meshes, of qwen2.5-32b's on 16x16 and of 10a's configuration on a mesh
+    of one, with the GNN cell on both meshes, six processes at once; each
+    LM train cell's peak beside the reference's and held to its bar, the
+    predicted peak and FLOPs beside 11a's and 10a's."""
     import concurrent.futures as cf
     base = ("--arch", LM_FULL, "--shape", "train_4k")
     cells = {"16x16": base + ("--single-pod",), "2x16x16": base,
+             "qwen 16x16": ("--arch", "qwen2.5-32b", "--shape", "train_4k",
+                            "--single-pod"),
              "1x1 (10a)": base + ("--mesh", "1x1", "--batch",
                                   str(LM_TRAIN_BATCH)),
              "gnn 16x16": ("--gnn", "--single-pod"), "gnn 2x16x16": ("--gnn",)}
@@ -2402,12 +2417,19 @@ def _lm_dryrun() -> None:
     for tag, r in out.items():
         assert r["status"] == "ok", r
         mem, coll = r["memory"], r["collectives"]
-        print(f"phase 11b dry run {LM_FULL} train_4k on {tag} (batch "
+        print(f"phase 11b dry run {r['arch']} train_4k on {tag} (batch "
               f"{r['global_batch']}): argument {mem['argument_bytes']} B, "
               f"output {mem['output_bytes']} B, peak {mem['peak_bytes']} B "
               f"a device; flops {r['flops']:.4e} a device; collectives "
               + ", ".join(f"{k} {v}" for k, v in sorted(coll.items()))
               + f"; traced in {r['step_s']:.1f} s (built {r['build_s']:.1f})")
+    for tag, (arch, ref, bar) in LM_TRAIN_PEAKS.items():
+        peak = out[tag]["memory"]["peak_bytes"]
+        assert out[tag]["arch"] == arch, out[tag]
+        print(f"phase 11b {arch} train_4k on {tag.split()[-1]}: peak {peak} "
+              f"B a device, the reference's plan {ref} B (ratio "
+              f"{peak / ref:.3f}), bar {bar} B")
+        assert peak <= bar, (tag, peak, bar)
     one = out["1x1 (10a)"]
     print(f"phase 11b 10a's configuration: dry-run peak "
           f"{one['memory']['peak_bytes']} B vs 11a's measured "

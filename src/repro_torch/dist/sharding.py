@@ -418,16 +418,22 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 
     For each mesh axis of more than one rank it keeps one subscript
     sharded over it: of those the operands already shard on that axis, the
-    one whose operands hold the most bytes in place (so weights, not
-    activations, are gathered), and only where every operand with that
-    subscript can be sharded on it evenly. Each operand is redistributed explicitly to that layout, the
-    einsum runs on the local shards, and the result is a DTensor sharded on
-    the kept output subscripts and ``Partial`` over axes whose kept
-    subscript was contracted. Gradients flow through ``redistribute``,
-    ``to_local`` (an operand that lacks a kept subscript gets a ``Partial``
-    gradient) and ``from_local``. DTensor's own einsum decomposition would
-    reshape sharded dims together into strided shards and search for a
-    plan; this never does.
+    one whose operands hold the most bytes in place, and only where every
+    operand with that subscript can be sharded on it evenly. On the row
+    axes that keeps the activation's rows and gathers an FSDP weight, as
+    the reference's plan does. On ``model`` the reference keeps a weight's
+    tensor-parallel subscript (the MLP's hidden dim, the vocabulary) and
+    gathers the activation's sequence shard; bytes alone would choose the
+    other way, so those callers gather the sequence first
+    (``layers.swiglu``, ``LM._logits``) and leave the weight's subscript
+    the only one held there. Each operand is redistributed explicitly to
+    that layout, the einsum runs on the local shards, and the result is a
+    DTensor sharded on the kept output subscripts and ``Partial`` over
+    axes whose kept subscript was contracted. Gradients flow through
+    ``redistribute``, ``to_local`` (an operand that lacks a kept subscript
+    gets a ``Partial`` gradient) and ``from_local``. DTensor's own einsum
+    decomposition would reshape sharded dims together into strided shards
+    and search for a plan; this never does.
     """
     if not all(isinstance(o, DTensor) for o in ops):
         raise TypeError("einsum: mixed DTensor and plain operands")

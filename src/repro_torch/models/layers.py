@@ -112,6 +112,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qs = (q * float(scale)).to(q.dtype).float()
     q_pos = _arange(q, sq, q_offset)
     lbl = _attn_labels(h, sq)
+    if lbl[2] is not None:
+        # heads that do not divide ``model``: the scores are sharded on the
+        # query positions, so each rank computes only its rows of them (a
+        # slice of the replicated query, no collective)
+        qs = shard_act(qs, "dp", "model", None, None)
 
     if not kv_chunk or kv_chunk >= t:
         logits = shard_act(einsum("bshd,bthd->bhst", qs, k.float()), *lbl)
@@ -126,10 +131,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: T={t} is not a multiple of "
                          f"kv_chunk={kv_chunk}")
 
-    def body(m, l, acc, kc, vc, c0: int):
+    # every tensor the chunk reads is an argument of ``body``, which closes
+    # over Python values only: a checkpoint keeps its function until the
+    # backward, so under the layer's own remat a tensor it closed over (the
+    # query, replicated over ``model`` where the heads do not divide it)
+    # would outlive the layer
+    def body(qs, q_pos, m, l, acc, kc, vc, c0: int):
         logits = shard_act(einsum("bshd,bthd->bhst", qs, kc.float()), *lbl)
         if causal:
-            k_pos = _arange(q, kv_chunk, c0)
+            k_pos = _arange(qs, kv_chunk, c0)
             mask = q_pos[:, None] >= k_pos[None, :]
             logits = torch.where(mask[None, None], logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(-1))
@@ -152,7 +162,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # instead of keeping a (Sq, kv_chunk) score block per chunk
     remat = torch.is_grad_enabled()
     for c0 in range(0, t, kv_chunk):
-        args = (m, l, acc, k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk], c0)
+        args = (qs, q_pos, m, l, acc, k[:, c0:c0 + kv_chunk],
+                v[:, c0:c0 + kv_chunk], c0)
         if remat:
             m, l, acc = checkpoint(body, *args, use_reentrant=False)
         else:
@@ -278,6 +289,14 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP. On a mesh it is tensor-parallel over ``model``, the
+    reference's plan: the sequence shard of a (B, S, d) input is gathered
+    once, here, so the hidden dim of ``w_gate``/``w_up`` stays sharded as
+    the weights are (``dist.sharding.einsum`` keeps the one subscript held
+    over ``model``) and ``w_down`` sums its shards; no weight is gathered
+    over ``model``."""
+    if x.ndim == 3:
+        x = shard_act(x, "dp", None, None)
     g = einsum("...d,df->...f", x, w_gate)
     u = einsum("...d,df->...f", x, w_up)
     act = F.silu(g) * u

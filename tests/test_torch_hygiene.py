@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in ``repro_torch``,
-``chip_smoke.py``, the port's CLIs (``examples/*_torch.py``) or the worker
+``chip_smoke.py``, the port's CLIs (``examples/*_torch.py``), its CI
+scripts (``scripts/*_torch.py``) or the worker
 modules the distributed tests spawn (``tests/_torch_dist.py``,
 ``_torch_lm_dist.py`` and their ``_torch_ranks.py``), and its entry points
 never drop to the CPU unasked."""
@@ -17,6 +18,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 CHIP_SMOKE = REPO / "chip_smoke.py"
 PORT_CLIS = sorted((REPO / "examples").glob("*_torch.py"))
+PORT_SCRIPTS = sorted((REPO / "scripts").glob("*_torch.py"))
 # spawned by the distributed tests: their children must not import JAX
 DIST_WORKERS = [REPO / "tests" / f for f in ("_torch_dist.py",
                                              "_torch_lm_dist.py",
@@ -40,7 +42,7 @@ def _forbidden(mod: str) -> bool:
 
 @pytest.mark.parametrize("path",
                          sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + PORT_CLIS
-                         + DIST_WORKERS,
+                         + PORT_SCRIPTS + DIST_WORKERS,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]

@@ -18,6 +18,10 @@ rtol 1e-4, every leaf's gradient, new parameters and the prefill logits
 step: rwkv6's gradients (its time-mix streams are bf16) 1e-3, the prefill's
 bf16 caches and decode's logits (bf16 caches and probabilities) 1e-2.
 
+rwkv6's bar is RWKV_RTOL or, when larger, twice what the reference's own
+step shows on the same (2, 2) mesh: its SPMD gradient against its plain
+gradient, on the same inputs, measured in the reference's subprocess.
+
 The MoE case: deepseek-v2-lite with a batch of 2 rows, for which the
 dispatch chunk count is 2 on one process and 1 on the (2, 2) mesh (the
 reference's rule, ``repro/models/blocks.py:463``), against the reference's
@@ -71,6 +75,13 @@ LOSS_RTOL, LEAF_RTOL = 1e-4, 2e-4
 # (ssm._ddlerp, as the reference does): a reordered f32 sum before that cast
 # flips an entry by one bf16 step (2^-8), which reaches its gradients
 RWKV_RTOL = 1e-3
+# ... and the mesh reorders such sums (its tensor-parallel contractions
+# over ``model``): the reference's own SPMD gradient on a (2, 2) mesh
+# differs from its plain one by 1.56e-3 in mu_x's (jax 0.9.0, CPU), as much
+# as the port's. The rwkv6 bar is the larger of RWKV_RTOL and this factor
+# times the reference's worst leaf difference, measured in REF_SPMD: the
+# flips fall on other entries in the two packages
+RWKV, RWKV_REF_FACTOR = "rwkv6-7b", 2.0
 # caches are stored in bf16, and decode attention casts its probabilities
 # to bf16 (the reference's roundings): a reordered f32 sum flips entries by
 # one bf16 step (2^-8), in the caches and through them in decode's logits
@@ -122,6 +133,13 @@ def moe_inputs():
     reference's subprocess)."""
     cfg, weights = _weights(MOE)
     return weights, _batch(cfg, MOE_B)
+
+
+def rwkv_inputs():
+    """The rwkv6 case's weights and batch, for the reference's
+    subprocess."""
+    cfg, weights = _weights(RWKV)
+    return weights, _batch(cfg, B)
 
 
 def _cases() -> list:
@@ -202,8 +220,35 @@ REF_SPMD = """
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     with mesh:
         _, _, m = jax.jit(step, in_shardings=shs)(params, state, jb)
+
+    # rwkv6: the reference's own SPMD gradient on the (2, 2) mesh against
+    # its plain one, the worst leaf's relative difference in norm
+    import dataclasses
+    import numpy as np
+    from repro.dist.sharding import activation_sharding
+    from test_torch_lm_sharded import RWKV, overrides, rwkv_inputs
+    weights, batch = rwkv_inputs()
+    cfg = dataclasses.replace(reduced_config(RWKV), **overrides(RWKV))
+    b, s = batch["tokens"].shape
+    lm, _, _, shs = build_cell(cfg, ShapeConfig("rwkv", "train", s, b), mesh)
+    params = jax.tree.map(jnp.asarray, weights)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    grad = jax.value_and_grad(lm.train_loss)
+    _, plain = jax.jit(grad)(params, jb)
+
+    def spmd(p, bt):
+        with activation_sharding(mesh):
+            return grad(p, bt)
+    with mesh:
+        _, sharded = jax.jit(spmd, in_shardings=(shs[0], shs[2]))(params, jb)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    worst = max(jax.tree.leaves(jax.tree.map(rel, sharded, plain)))
     print(json.dumps({"loss": float(m["loss"]),
-                      "grad_norm": float(m["grad_norm"])}))
+                      "grad_norm": float(m["grad_norm"]),
+                      "rwkv_spmd_worst": worst}))
 """
 
 
@@ -270,9 +315,15 @@ def leaves(tree, path=()):
     (mesh, arch) for mesh in sorted(MESHES) for arch in ARCH_NAMES
     if mesh == "2x2" or arch not in SLOW_3D])
 def test_sharded_train_step_matches_plain_step(runs, mesh, arch):
-    out, plain, _ = runs
+    out, plain, ref = runs
     assert_train_close(out[mesh][arch], plain[arch],
-                       RWKV_RTOL if arch == "rwkv6-7b" else LEAF_RTOL)
+                       rwkv_bar(ref) if arch == RWKV else LEAF_RTOL)
+
+
+def rwkv_bar(ref: dict) -> float:
+    """rwkv6's bar: RWKV_RTOL, or RWKV_REF_FACTOR times the reference's own
+    (2, 2) SPMD gradient's worst leaf difference from its plain one."""
+    return max(RWKV_RTOL, RWKV_REF_FACTOR * ref["rwkv_spmd_worst"])
 
 
 def assert_train_close(got, want, bar):
