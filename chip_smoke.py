@@ -1062,10 +1062,9 @@ def _phase_supervised(graph, parts, small, small_parts, phase4) -> dict:
         _zero_counts()
         tr.run(8)
         counts = _read_counts()
-        pipe = tr._pipeline
-        torch.cuda.synchronize()
-        copy_ms = [s.elapsed_time(e) for s, e in pipe.copy_events]
-        pinned = pipe.pinned_peak_bytes
+        copy_ms = [r["slot"]["copy_ms"] for r in tr.history
+                   if "copy_ms" in r.get("slot", {})]
+        pinned = tr._pipeline.pinned_peak_bytes
         nbytes = sum(t.nbytes for t in tree_leaves(tr._state_tree()))
         tr.close()
         _assert_launches("6a", tr, counts)

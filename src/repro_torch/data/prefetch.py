@@ -29,6 +29,7 @@ from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.lmc import Batch, host_batch
 from repro_torch.device import resolve_device
 
@@ -176,10 +177,13 @@ class Prefetcher:
 class _Staged(NamedTuple):
     """A batch whose copy to the device is issued: the device batch, the
     event the copy recorded on the side stream (None when no side stream
-    was used), and the host batch, held until the copy has been waited on."""
+    was used), the host batch, held until the copy has been waited on, the
+    slot's build record and the copy's events (``SubgraphPipeline.slot``)."""
     batch: Batch
     ready: Optional[torch.cuda.Event]
     host: Batch
+    record: dict
+    copy: dict
 
 
 class SubgraphPipeline:
@@ -197,7 +201,8 @@ class SubgraphPipeline:
     batch (double-buffered host→device transfer). The device tensors are
     ``record_stream``-ed on the compute stream, and the pinned host batch is
     held until its slot is replaced, so neither memory is reused while the
-    copy or the step may still read it.
+    copy or the step may still read it. Each slot carries a record of its
+    build's spans, bytes and copy events to its first step (``slot``).
 
     Determinism contract: the stream is a pure function of
     ``(sampler.seed, mode, recycle, step index)``. Slot ``i`` (steps
@@ -288,13 +293,11 @@ class SubgraphPipeline:
         self._pinned_lock = threading.Lock()
         self.pinned_bytes = 0
         self.pinned_peak_bytes = 0
-        # (start, end) CUDA events around the newest side-stream batch
-        # copies, for their device time (``start.elapsed_time(end)``)
-        self.copy_events: deque = deque(maxlen=64)
         self._step = int(start_step)
         self._end_step = None if num_steps is None else self._step + int(num_steps)
         self._cur_slot = -1
         self._cur: Optional[_Staged] = None
+        self._fresh = False   # the newest yield is its slot's first step
         self._staged: Optional[_Staged] = None   # next slot, copy issued
         self._closed = False
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -310,24 +313,36 @@ class SubgraphPipeline:
                                   depth=self.depth)
 
     # ------------------------------------------------------------- producer
-    def _build_host(self, slot: int, pin: bool = False) -> Batch:
-        """Worker-side: schedule slot -> host Batch (numpy and
-        ``torch.from_numpy``; pinned when ``pin``)."""
+    def _build_host(self, slot: int, pin: bool = False) -> tuple:
+        """Worker-side: schedule slot -> (host Batch, its record). The batch
+        is numpy and ``torch.from_numpy``, pinned when ``pin``; the record
+        is ``{"index", "t_ns", "sample_ms", "bucket_ms", "pin_ms" (pinned
+        only), "copy_bytes"}``: the build's spans on this thread (the
+        sampler's subgraph, the ELL bucketing in ``host_batch``, pinning),
+        its start and end on the profiler's clock, and the batch's bytes."""
         if self.build_hook is not None:
             self.build_hook(slot)
-        cids = self.sampler.clusters_at(slot, mode=self.mode)
-        sg = self.sampler.build_batch(cids)
-        hb = host_batch(sg, backend=self.backend,
-                        ell_buckets=self.ell_buckets)
-        if not pin:
-            return hb
-        hb = hb.pin_memory()
+        spans: dict = {}
+        with trace.span("pipeline.sample", spans):
+            sg = self.sampler.build_batch(
+                self.sampler.clusters_at(slot, mode=self.mode))
+        with trace.span("pipeline.bucket", spans):
+            hb = host_batch(sg, backend=self.backend,
+                            ell_buckets=self.ell_buckets)
         nbytes = sum(t.nbytes for t in hb.tensors())
-        with self._pinned_lock:
-            self.pinned_bytes += nbytes
-            self.pinned_peak_bytes = max(self.pinned_peak_bytes,
-                                         self.pinned_bytes)
-        return hb
+        if pin:
+            with trace.span("pipeline.pin", spans):
+                hb = hb.pin_memory()
+            with self._pinned_lock:
+                self.pinned_bytes += nbytes
+                self.pinned_peak_bytes = max(self.pinned_peak_bytes,
+                                             self.pinned_bytes)
+        stamps = list(spans.values())
+        rec = {"index": slot, "t_ns": (stamps[0][0], stamps[-1][1]),
+               "copy_bytes": nbytes,
+               **{k.split(".")[1] + "_ms": v
+                  for k, v in trace.stamp_ms(spans).items()}}
+        return hb, rec
 
     def _built_stream(self, first_slot: int, end_slot: Optional[int]):
         """Generator the Prefetcher drives: in-order built host batches.
@@ -356,18 +371,19 @@ class SubgraphPipeline:
                 f.cancel()
 
     # ------------------------------------------------------------- consumer
-    def _stage(self, hb: Batch) -> _Staged:
-        """Issue ``hb``'s copy to the device on the side stream."""
+    def _stage(self, built: tuple) -> _Staged:
+        """Issue a built (host Batch, record)'s copy to the device on the
+        side stream, between the events ``pipeline.copy`` times."""
+        hb, rec = built
         if self._copy_stream is None:
-            return _Staged(hb.to(self.device), None, hb)
+            return _Staged(hb.to(self.device), None, hb, rec, {})
         start = torch.cuda.Event(enable_timing=True)
         ready = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self._copy_stream):
             start.record(self._copy_stream)
             db = hb.to(self.device, non_blocking=True)
             ready.record(self._copy_stream)
-        self.copy_events.append((start, ready))
-        return _Staged(db, ready, hb)
+        return _Staged(db, ready, hb, rec, {"pipeline.copy": (start, ready)})
 
     def _fetch_next_slot(self) -> _Staged:
         """Staged batch for the next schedule slot, advancing the stream.
@@ -391,9 +407,8 @@ class SubgraphPipeline:
     def _release(self, staged: Optional[_Staged]) -> None:
         """Drop a replaced slot's pinned host batch from the accounting."""
         if staged is not None and self._cuda and self._pf is not None:
-            nbytes = sum(t.nbytes for t in staged.host.tensors())
             with self._pinned_lock:
-                self.pinned_bytes -= nbytes
+                self.pinned_bytes -= staged.record["copy_bytes"]
 
     def __iter__(self):
         """Return self (single-consumer iterator)."""
@@ -406,6 +421,7 @@ class SubgraphPipeline:
         if self._end_step is not None and self._step >= self._end_step:
             raise StopIteration
         slot = self._step // self.recycle
+        self._fresh = False
         if slot != self._cur_slot:
             staged = self._fetch_next_slot()
             if staged.ready is not None:
@@ -417,7 +433,7 @@ class SubgraphPipeline:
                 for t in staged.batch.tensors():
                     t.record_stream(compute)
             self._release(self._cur)
-            self._cur, self._cur_slot = staged, slot
+            self._cur, self._cur_slot, self._fresh = staged, slot, True
         self._step += 1
         return self._cur.batch
 
@@ -426,6 +442,16 @@ class SubgraphPipeline:
         """The host Batch of the newest yield's slot: the same gids and
         masks as the device batch, readable without a device sync."""
         return self._cur.host
+
+    @property
+    def slot(self) -> Optional[tuple]:
+        """``(record, copy)`` of the newest yield's slot when that yield is
+        the slot's first step, else None. ``record`` is the build's (see
+        ``_build_host``); ``copy`` holds the side stream's events around the
+        batch's copy, ``{"pipeline.copy": (start, ready)}`` (empty without a
+        side stream), which ``trace.elapsed_ms`` reads once the step that
+        read the batch has synchronised."""
+        return (self._cur.record, self._cur.copy) if self._fresh else None
 
     @property
     def step(self) -> int:

@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
 from repro_torch.core import (HistoricalState, MBMethod, accuracy,
                               commit_rows, from_graph, host_batch,
@@ -270,12 +271,26 @@ class GNNTrainer:
         """Train for ``num_steps`` more steps; returns the history list.
 
         Each step appends ``{"step", "loss", "train_acc", "grad_norm",
-        "time_s", "host_s", "straggler"}`` (with health on, also
+        "time_s", "host_s", "straggler", "t_ns"}`` (with health on, also
         ``"halo_staleness"`` and, past the ρ budget,
         ``"staleness_violation"``): ``time_s`` is the whole step on the host
-        clock, ``host_s`` the part spent obtaining the batch (sampling and
-        building it, or waiting on the pipeline). Every ``eval_every`` steps
-        a ``{"step", "val_acc"}`` record follows.
+        clock but its store commit, ``host_s`` the part spent obtaining
+        the batch (sampling and building it, or waiting on the pipeline:
+        the span ``trainer.wait``), ``t_ns`` the step's start and end on the
+        profiler's clock (``time.time_ns()``). ``time_s`` and ``host_s``
+        stay on ``perf_counter``, which no clock adjustment can step, since
+        their ratio is a metric; ``t_ns`` only places the step on a trace.
+        On the pipeline path, the
+        first step that consumes a slot also carries ``"slot"``: the slot's
+        build record (``{"index", "t_ns", "sample_ms", "bucket_ms",
+        "copy_bytes"}``, ``"pin_ms"`` where pinned, ``"copy_ms"`` where a
+        side stream copied it; ``SubgraphPipeline._build_host``). While a
+        torch profiler records on a CUDA device, ``"device_ms"`` holds the
+        compute stream's ms of ``"optimizer"`` and ``"commit"`` (the store
+        rows; absent where the step kept them out), and the spans
+        ``trainer.wait``, ``step.lmc``, ``step.optimizer`` and
+        ``step.commit`` show in the trace. Every ``eval_every`` steps a
+        ``{"step", "val_acc"}`` record follows.
 
         The supervisor loop: every fault class recovers here without
         operator intervention —
@@ -366,25 +381,32 @@ class GNNTrainer:
                              "policy": policy})
 
     def _one_step(self) -> None:
-        t0 = time.perf_counter()
-        if self._use_pipeline:
-            pipe = self._batch_pipeline()
-            batch = next(pipe)                 # may raise PipelineFault
-            hb = pipe.host
-            host_s = time.perf_counter() - t0
-        else:
-            hb = host_batch(self.sampler.sample(), backend=self.backend)
-            host_s = time.perf_counter() - t0
+        t0, t0_ns = time.perf_counter(), time.time_ns()
+        dev, fresh = {}, None   # device event pairs, the new slot's record
+        with trace.span("trainer.wait"):
+            if self._use_pipeline:
+                pipe = self._batch_pipeline()
+                batch = next(pipe)             # may raise PipelineFault
+                hb, fresh = pipe.host, pipe.slot
+            else:
+                hb = host_batch(self.sampler.sample(), backend=self.backend)
+        host_s = time.perf_counter() - t0
+        if not self._use_pipeline:
             batch = hb.to(self.device)
+        if fresh is not None:
+            dev.update(fresh[1])
         if self.failure_injector is not None:
             self.failure_injector.maybe_fail(self.step_num)
             if isinstance(self.failure_injector, FaultPlan):
                 batch = self.failure_injector.corrupt_batch(self.step_num,
                                                             batch)
-        loss, grads, rows, metrics = self._step(
-            self.params, self.store, batch, self.data.x, self.data.self_w)
-        new_params, new_opt, gnorm = self.opt.update(
-            grads, self.opt_state, self.params, self.lr)
+        with trace.span("step.lmc"):
+            loss, grads, rows, metrics = self._step(
+                self.params, self.store, batch, self.data.x, self.data.self_w)
+        with (trace.span("step.optimizer"),
+              trace.device_span("step.optimizer", dev, self.device)):
+            new_params, new_opt, gnorm = self.opt.update(
+                grads, self.opt_state, self.params, self.lr)
         lossf, gnormf = float(loss), float(gnorm)
 
         # ---- health gate: nothing below is applied if this step diverged
@@ -405,11 +427,22 @@ class GNNTrainer:
         store_updated = not (is_straggler
                              and self.straggler_policy == "skip-store")
         if store_updated and rows is not None:
-            commit_rows(self.store, batch, rows, self.graph.num_nodes)
-        rec = {"step": self.step_num + 1, "loss": lossf,
-               "train_acc": float(metrics["train_acc"]),
+            with (trace.span("step.commit"),
+                  trace.device_span("step.commit", dev, self.device)):
+                commit_rows(self.store, batch, rows, self.graph.num_nodes)
+        acc = float(metrics["train_acc"])
+        # reading acc waited for the compute stream, which had waited for
+        # the batch's copy: every event in ``dev`` has passed
+        dev_ms = trace.elapsed_ms(dev)
+        rec = {"step": self.step_num + 1, "loss": lossf, "train_acc": acc,
                "grad_norm": gnormf, "time_s": dt, "host_s": host_s,
                "straggler": bool(is_straggler)}
+        if fresh is not None:
+            rec["slot"] = fresh[0]
+            if "pipeline.copy" in dev_ms:
+                rec["slot"]["copy_ms"] = dev_ms.pop("pipeline.copy")
+        if dev_ms:
+            rec["device_ms"] = {k.split(".")[1]: v for k, v in dev_ms.items()}
         if self.guard is not None:
             self.guard.observe(lossf)
             # the host batch holds the same gids and masks: no device sync
@@ -423,6 +456,7 @@ class GNNTrainer:
                 rec["staleness_violation"] = rho_msg
         self._step_times.append(dt)
         self.step_num += 1
+        rec["t_ns"] = (t0_ns, time.time_ns())
         self.history.append(rec)
 
     # ----------------------------------------------------------------- eval

@@ -382,23 +382,103 @@ def test_pipeline_batch_staged_on_side_stream_equals_sync(cuda, backend):
     from repro_torch.graph import ClusterSampler, make_sbm_dataset
     graph = make_sbm_dataset("ppi-cpu", seed=3)
 
+    from repro_torch import trace
+
     def stream(depth):
         sampler = ClusterSampler(graph, 8, 2, seed=0)
         with SubgraphPipeline(sampler, backend=backend, depth=depth,
                               workers=2, num_steps=5, device=cuda) as pipe:
-            out = [[t.clone() for t in b.tensors()] for b in pipe]
+            out, slots = [], []
+            for b in pipe:
+                out.append([t.clone() for t in b.tensors()])
+                slots.append(pipe.slot)
             assert pipe.host.batch_gids.is_pinned() == (depth > 0)
-            return out, pipe.pinned_peak_bytes, list(pipe.copy_events)
+            return out, pipe.pinned_peak_bytes, slots
 
-    sync, sync_pinned, sync_events = stream(0)
-    staged, pinned, events = stream(2)
-    assert sync_pinned == 0 and not sync_events
-    assert pinned > 0 and len(events) == 5
+    sync, sync_pinned, sync_slots = stream(0)
+    staged, pinned, slots = stream(2)
+    assert sync_pinned == 0
+    assert all(copy == {} and "pin_ms" not in rec
+               for rec, copy in sync_slots)
+    assert pinned > 0 and len(slots) == 5
+    assert all(rec["pin_ms"] > 0 for rec, _ in slots)
     torch.cuda.synchronize()
-    assert all(s.elapsed_time(e) >= 0 for s, e in events)
+    assert all(trace.elapsed_ms(copy)["pipeline.copy"] >= 0
+               for _, copy in slots)
     assert len(sync) == len(staged) == 5
     for a, b in zip(sync, staged):
         assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _card_trainer(cuda):
+    """A GCN 2×32 on ppi-cpu, trained on the card through the pipeline
+    (depth 2, pinned batches copied on the side stream)."""
+    from repro_torch.core import LMC
+    from repro_torch.graph import ClusterSampler, make_sbm_dataset
+    from repro_torch.models import make_gnn
+    from repro_torch.optim import sgd
+    from repro_torch.train import GNNTrainer
+    graph = make_sbm_dataset("ppi-cpu", seed=3)
+    gnn = make_gnn("gcn", graph.feature_dim, 32, graph.num_classes, 2,
+                   generator=torch.Generator().manual_seed(0))
+    return GNNTrainer(gnn, LMC, graph, ClusterSampler(graph, 8, 2, seed=0),
+                      sgd(lr=0.2), backend="ell", prefetch=2,
+                      straggler_deadline=float("inf"), device=cuda)
+
+
+def _profiled_run(cuda, steps: int):
+    """One unprofiled step (kernel builds, the first batch), then ``steps``
+    under the profiler; (profiler, the profiled steps' records)."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = _card_trainer(cuda)
+    tr.run(1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(steps)
+    tr.close()
+    return prof, tr.history
+
+
+def test_profiled_trainer_fills_device_spans(cuda):
+    """Under the profiler every step carries the compute stream's ms of
+    the optimizer and the store commit, and every slot its side-stream copy
+    ms; the spans show in the trace."""
+    prof, hist = _profiled_run(cuda, 4)
+    first, recs = hist[0], hist[1:]
+    assert "device_ms" not in first and first["slot"]["copy_ms"] > 0
+    assert [r["step"] for r in recs] == [2, 3, 4, 5]
+    for r in recs:
+        assert set(r["device_ms"]) == {"optimizer", "commit"}, r
+        assert all(v > 0 for v in r["device_ms"].values()), r
+        assert r["slot"]["copy_ms"] > 0 and r["slot"]["pin_ms"] > 0
+        assert r["slot"]["copy_bytes"] > 0
+    names = {e.name for e in prof.events()}
+    assert {"trainer.wait", "step.lmc", "step.optimizer",
+            "step.commit"} <= names
+
+
+SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+         "cudaDeviceSynchronize")
+
+
+def test_spans_add_no_synchronisation(cuda, monkeypatch):
+    """A profiled run with the device spans on makes as many synchronising
+    CUDA runtime calls and device-to-host copies as one with them off (the
+    program's path without a profiler)."""
+    from collections import Counter
+    from repro_torch import trace
+
+    def syncs(prof):
+        return Counter(e.name for e in prof.events()
+                       if e.name in SYNCS or e.name.startswith("Memcpy DtoH"))
+
+    on, hist_on = _profiled_run(cuda, 4)
+    with monkeypatch.context() as m:
+        m.setattr(trace, "profiling", lambda: False)
+        off, hist_off = _profiled_run(cuda, 4)
+    assert "device_ms" in hist_on[2] and "device_ms" not in hist_off[2]
+    assert syncs(on) == syncs(off), (syncs(on), syncs(off))
+    assert syncs(on)["cudaStreamSynchronize"] >= 4
 
 
 def _norm_rel(a, b) -> float:

@@ -232,8 +232,13 @@ def test_prefetch_equals_sync_stream(tg, parts, backend):
         ref = list(sync)
     with _pipe(tg, parts, backend=backend, depth=2, workers=2,
                num_steps=6) as pre:
-        got = list(pre)
-        assert pre.pinned_peak_bytes == 0 and not pre.copy_events  # CPU
+        got, slots = [], []
+        for batch in pre:
+            got.append(batch)
+            slots.append(pre.slot)
+        assert pre.pinned_peak_bytes == 0
+    # CPU: no slot was pinned, and none was copied on a side stream
+    assert all("pin_ms" not in rec and copy == {} for rec, copy in slots)
     assert len(ref) == len(got) == 6
     assert all(_same_batch(r, g) for r, g in zip(ref, got))
 
@@ -330,6 +335,30 @@ def test_host_batch_is_the_yielded_slot(tg, parts):
             assert _same_batch(pipe.host, b)
 
 
+@pytest.mark.parametrize("depth,recycle", [(0, 1), (0, 2), (2, 1), (2, 2)])
+def test_slot_record_reaches_its_first_step(tg, parts, depth, recycle):
+    """Each slot's build record comes with the first yield of its slot and
+    with no other: its index, its build's spans in order on the profiler's
+    clock, its bytes; no pinning and no side-stream copy on the CPU."""
+    with _pipe(tg, parts, depth=depth, recycle=recycle,
+               num_steps=6) as pipe:
+        seen = [(batch, pipe.slot) for batch in pipe]
+    assert len(seen) == 6
+    for step, (batch, slot) in enumerate(seen):
+        if step % recycle:
+            assert slot is None
+            continue
+        rec, copy = slot
+        assert rec["index"] == step // recycle and copy == {}
+        assert set(rec) == {"index", "t_ns", "sample_ms", "bucket_ms",
+                            "copy_bytes"}
+        assert rec["sample_ms"] > 0 and rec["bucket_ms"] > 0
+        assert 0 < rec["t_ns"][0] < rec["t_ns"][1]
+        assert (rec["t_ns"][1] - rec["t_ns"][0]) / 1e6 >= \
+            rec["sample_ms"] + rec["bucket_ms"]
+        assert rec["copy_bytes"] == sum(t.nbytes for t in batch.tensors())
+
+
 # ---------------------------------------------------- against the reference
 @pytest.mark.parametrize("mode,recycle,backend", [
     ("uniform", 1, "segment"), ("epoch", 2, "ell")])
@@ -359,6 +388,31 @@ def test_trainer_prefetch_matches_sync(tg, parts):
     tb.run(6)
     tb.close()
     assert losses(ta) == losses(tb)
+
+
+@pytest.mark.parametrize("depth,recycle", [(0, 1), (0, 2), (2, 1), (2, 2)])
+def test_trainer_step_records_carry_spans(tg, parts, depth, recycle):
+    """On the CPU every step record carries its start and end on the
+    profiler's clock, the first step of each slot that slot's build record
+    and no other step one, and no step device times (no profiler, no card);
+    ``host_s`` lies inside ``t_ns``."""
+    tr = port_trainer(tg, parts, prefetch=depth, recycle=recycle)
+    tr.run(6)
+    tr.close()
+    recs = [r for r in tr.history if "loss" in r]
+    assert [r["step"] for r in recs] == list(range(1, 7))
+    for prev, r in zip([None] + recs, recs):
+        t0, t1 = r["t_ns"]
+        assert 0 < t0 < t1 and (prev is None or prev["t_ns"][1] <= t0)
+        assert r["host_s"] <= r["time_s"] <= (t1 - t0) / 1e9 + 1e-3
+        assert "device_ms" not in r
+        first = (r["step"] - 1) % recycle == 0
+        assert ("slot" in r) == first
+        if first:
+            assert r["slot"]["index"] == (r["step"] - 1) // recycle
+            assert r["slot"]["sample_ms"] > 0 and r["slot"]["bucket_ms"] > 0
+            assert not {"pin_ms", "copy_ms"} & set(r["slot"])
+            assert r["slot"]["t_ns"][1] <= t1
 
 
 def test_trainer_resume_through_pipeline(tmp_path, tg, parts):
