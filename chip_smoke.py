@@ -39,7 +39,12 @@ which raises on failure:
      run there in their per-bucket form, one line per bucket, and then as
      the main path runs them, one whole ``bucketed_spmm`` layer (a scatter
      launch per bucket into one output) against its plain twin, against
-     ``torch.sparse.mm`` on the layer's whole CSR and against its bound;
+     ``torch.sparse.mm`` on the layer's whole CSR and against its bound.
+     The ELL build's two kernels (``csrc/ell_build.cu``: rows, scatter) at
+     the serving batch (A) and at the training batch (A and Aᵀ), each
+     against its plain twin on the card (``torch.equal``), each timed
+     beside its own bytes bound, and the whole build against the numpy
+     builder ``ell_from_coo`` bit for bit;
   3. serve  — GNNServer(backend="ell") on the card with a 3-layer,
      256-wide GCN over arxiv-like: ~32 requests of 1-128 targets must all
      answer exact within 1e-4 of the full-graph forward, a forced ti batch
@@ -51,7 +56,8 @@ which raises on failure:
      on the card within the reference's bar, then 6 steps with finite losses
      and exactly 27 SpMM launches (9 forward + 2 cotangents x 3 layers x 3
      buckets over the transpose) and 5 compensation launches (3 forward + 2
-     backward) per step; prints host sample+build ms and step ms per step;
+     backward) and 4 ELL build launches (rows and scatter, for A and for
+     Aᵀ) per step; prints host sample+build ms and step ms per step;
   5. resident — the same trainer on arxiv-cpu with stream=False for 6 steps
      on the resident-source kernels only; its losses must equal a
      stream=True run from the same seed within 1e-6 relative;
@@ -548,7 +554,7 @@ def _phase_kernels(graph, gateway) -> None:
     rng = np.random.default_rng(0)
     targets = np.sort(rng.choice(graph.num_nodes, 100, replace=False))
     sg, hb = gateway.build(targets)
-    ell = hb.ell.to("cuda")
+    ell = hb.to("cuda").ell   # the gateway's plan, built on the card
     shapes = tuple(tuple(i.shape) for i in ell.bucket_idx)
     assert shapes == SPMM_SHAPES and sg.n_ext == 3776, (shapes, sg.n_ext)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -561,6 +567,139 @@ def _phase_kernels(graph, gateway) -> None:
     _comp_case(store, hb.halo_gids.to("cuda"), fresh,
                hb.halo_mask.to("cuda"), label="serving lmc_compensate",
                launch_floor=True)
+
+
+def _build_directions(sg, with_transpose: bool, device):
+    """The inputs of the ELL build kernels for one batch, as
+    ``ELLPlan.build_torch`` makes them on ``device``: per direction (A, and
+    Aᵀ where planned), its label, the sorted keys, columns and weights,
+    its layout and its real slot rows; and the plan."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import plan_ell
+    eb = importlib.import_module("repro_torch.kernels.ell_build")
+    plan = plan_ell(sg.edge_src, sg.edge_dst, sg.n_ext,
+                    with_transpose=with_transpose)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    src, dst = t(sg.edge_src, torch.int32), t(sg.edge_dst, torch.int32)
+    key, order = torch.sort(dst, stable=True)
+    col, w = src[order], t(sg.edge_w, torch.float32)[order]
+    dirs = [("A", key, col, w, plan.real)]
+    if with_transpose:
+        key_t, order_t = torch.sort(col, stable=True)
+        dirs.append(("At", key_t, key[order_t], w[order_t], plan.t_real))
+    return plan, [(d, k, c, v, eb.Layout.of(plan.buckets, plan.capacity, r),
+                   sum(r)) for d, k, c, v, r in dirs]
+
+
+def _build_outputs(n: int, layout, dev):
+    """Fresh (rowptr, counts) and zeroed (idx, wout, rid filled with n) for
+    one direction, as ``kernels.ell_build._bucket`` allocates them."""
+    import torch
+    nb = len(layout.widths)
+    slots = sum(c * k for c, k in zip(layout.capacity, layout.widths))
+    return (torch.empty(n + 1, dtype=torch.int32, device=dev),
+            torch.empty(nb * n, dtype=torch.int32, device=dev),
+            torch.zeros(slots, dtype=torch.int32, device=dev),
+            torch.zeros(slots, dtype=torch.float32, device=dev),
+            torch.full((sum(layout.capacity),), n, dtype=torch.int32,
+                       device=dev))
+
+
+def _build_case(label: str, sg, with_transpose: bool, reps: int = 25) -> dict:
+    """The ELL build's two kernels on one batch's COO, per direction: each
+    against its plain twin on the card on the same inputs (``torch.equal``
+    on every output), each timed (kernel and twin) beside its own bytes
+    bound; and the whole build (``ELLPlan.build``) against the numpy
+    builder ``ell_from_coo`` (``torch.equal``, ``bucket_real`` included).
+    Returns {kernel: numbers} summed over the directions. The bounds count
+    what each kernel must move: the rows kernel reads the keys once and
+    writes rowptr and the counts; the scatter reads the sorted COO, rowptr,
+    the counts and their scan, and writes each edge's (idx, w) and each
+    real slot row's id. The zeroing of the buckets' whole capacity is the
+    wrapper's fills, outside both. No library call computes either."""
+    import torch
+    from repro_torch.kernels import ell_from_coo
+    eb = importlib.import_module("repro_torch.kernels.ell_build")
+    plan, dirs = _build_directions(sg, with_transpose, "cuda")
+    n, nb = plan.num_rows, len(plan.buckets)
+    before = eb.LAUNCHES
+    got = plan.build(*(torch.from_numpy(a).cuda() for a in (
+        sg.edge_src.astype("int32"), sg.edge_dst.astype("int32"),
+        sg.edge_w.astype("float32"))))
+    assert eb.LAUNCHES == before + 2 * len(dirs), eb.LAUNCHES - before
+    want = ell_from_coo(sg.edge_src, sg.edge_dst, sg.edge_w, n,
+                        with_transpose=with_transpose)
+    for g, h in ((got, want), (got.transpose, want.transpose)):
+        if h is None:
+            assert g is None
+            continue
+        assert g.bucket_real == h.bucket_real, (g.bucket_real, h.bucket_real)
+        for a, b in zip(g.bucket_idx + g.bucket_w + g.bucket_rows,
+                        h.bucket_idx + h.bucket_w + h.bucket_rows,
+                        strict=True):
+            assert torch.equal(a.cpu(), b), f"{label}: build != numpy"
+    out = {name: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "library_ms": None} for name in ("ell_rows", "ell_build")}
+    for d, key, col, w, lay, real in dirs:
+        e = key.shape[0]
+        rp, ct, idx, wout, rid = _build_outputs(n, lay, "cuda")
+        eb.ell_rows(key, rp, ct, lay)
+        prp, pct, pidx, pwout, prid = _build_outputs(n, lay, "cuda")
+        eb.ell_rows_plain(key, prp, pct, lay)
+        assert torch.equal(rp, prp) and torch.equal(ct, pct), \
+            f"{label} {d}: ell_rows kernel != plain"
+        incl = ct.cumsum(0, dtype=torch.int32)
+        scatter = (key, col, w, rp, ct, incl)
+        eb.ell_scatter(*scatter, idx, wout, rid, lay)
+        eb.ell_scatter_plain(*scatter, pidx, pwout, prid, lay)
+        for a, b in ((idx, pidx), (wout, pwout), (rid, prid)):
+            assert torch.equal(a, b), f"{label} {d}: ell_scatter != plain"
+        rows_bytes = 4 * e + 4 * (n + 1) + 4 * nb * n
+        scatter_bytes = 12 * e + 4 * (n + 1) + 8 * nb * n + 8 * e + 4 * real
+        cases = {
+            "ell_rows": (lambda: eb.ell_rows(key, rp, ct, lay),
+                         lambda: eb.ell_rows_plain(key, prp, pct, lay),
+                         rows_bytes),
+            "ell_build": (lambda: eb.ell_scatter(*scatter, idx, wout, rid,
+                                                 lay),
+                          lambda: eb.ell_scatter_plain(*scatter, pidx, pwout,
+                                                       prid, lay),
+                          scatter_bytes)}
+        for name, (kernel, plain, nbytes) in cases.items():
+            c = {"ms": _time_ms(kernel, reps),
+                 "plain_ms": _time_ms(plain, reps),
+                 "bound_ms": _bound_ms(nbytes, 0.0)}
+            print(f"phase 2 {label} {name} ({d}: E={e} n={n} buckets "
+                  f"{tuple(zip(lay.capacity, lay.widths))}): err=0 "
+                  f"(torch.equal) ms={c['ms']:.4f} plain_ms="
+                  f"{c['plain_ms']:.4f} (the twin on the card) bound_ms="
+                  f"{c['bound_ms']:.5f} ({nbytes / 1e9:.4f} GB; no library "
+                  f"call computes it)")
+            for k in c:
+                out[name][k] += c[k]
+    print(f"phase 2 {label}: the card's build of "
+          f"{'A and its transpose' if with_transpose else 'A'} equals the "
+          f"numpy builder's bit for bit (bucket_real {got.bucket_real}"
+          + (f", {got.transpose.bucket_real}" if with_transpose else "")
+          + f"), {2 * len(dirs)} launches")
+    return out
+
+
+def _phase_build_kernels(graph, gateway, sampler) -> dict:
+    """The ELL build kernels at the serving batch (a 100-target request, A
+    only) and at the arxiv-like first training batch (A and Aᵀ); returns
+    the training batch's numbers."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    targets = np.sort(rng.choice(graph.num_nodes, 100, replace=False))
+    sg, _ = gateway.build(targets)
+    _build_case("serving ell build", sg, with_transpose=False)
+    sg = sampler.build_batch(sampler.clusters_at(0))
+    return _build_case("train ell build", sg, with_transpose=True, reps=5)
 
 
 def _train_batch(sampler):
@@ -670,6 +809,7 @@ def _phase_slice(graph, gateway) -> tuple:
         srv.config.force_mode = "ti"
         r_ti = srv.infer(rng.choice(graph.num_nodes, 50, replace=False))
         counts = _read_counts()
+        ell_builds = _build_launches()
         spmm_n, comp_n = counts["ell_spmm"], counts["lmc_compensate"]
         assert r_ti.status == "degraded" and r_ti.mode == "ti", r_ti
     finally:
@@ -686,6 +826,9 @@ def _phase_slice(graph, gateway) -> tuple:
     # in at least one bucket per layer
     assert spmm_n >= LAYERS * (exact_batches + 1), spmm_n
     assert comp_n >= 3 * exact_batches, comp_n
+    # each batch's A built on the card: one pair of launches
+    print(f"phase 3 ELL build launches: {ell_builds}")
+    assert ell_builds["ell_build"] >= exact_batches + 1, ell_builds
     lat = sorted(1e3 * r.latency_s for r in responses)
     p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
     print(f"phase 3 served {len(responses)} requests exact, max |logit err| "
@@ -717,7 +860,8 @@ def _phase_slice(graph, gateway) -> tuple:
               f"{1e3 * statistics.median(steps):.2f} request_p50_ms="
               f"{statistics.median(by_bucket[b]):.2f} "
               f"({len(by_bucket[b])} requests)")
-    return ({"ell_spmm": spmm_n, "lmc_compensate": comp_n},
+    return ({"ell_spmm": spmm_n, "lmc_compensate": comp_n,
+             **ell_builds},
             (gnn, params, data, full))
 
 
@@ -730,6 +874,16 @@ def _counters() -> tuple:
 def _zero_counts() -> None:
     for mod in _counters():
         mod.LAUNCHES = mod.LAUNCHES_RESIDENT = 0
+    importlib.import_module("repro_torch.kernels.ell_build").LAUNCHES = 0
+
+
+def _build_launches() -> dict:
+    """The ELL build's launches since ``_zero_counts``, per kernel: its
+    counter counts both, and the build launches them in pairs, the rows
+    kernel then the scatter, one pair a direction."""
+    n = importlib.import_module("repro_torch.kernels.ell_build").LAUNCHES
+    assert n % 2 == 0, n
+    return {"ell_rows": n // 2, "ell_build": n // 2}
 
 
 def _read_counts() -> dict:
@@ -876,9 +1030,9 @@ def _step_breakdown(tr, sampler) -> float:
     _, opt_ms = timed(lambda: tr.opt.update(grads, tr.opt_state, tr.params,
                                             tr.lr))
     print(f"phase 4 breakdown of one step (medians of 3, synchronised): "
-          f"host build {host_ms:.1f} ms, batch copy to the card "
-          f"{copy_ms:.1f} ms, train step {step_ms:.1f} ms, optimizer "
-          f"{opt_ms:.1f} ms")
+          f"host build {host_ms:.1f} ms, batch copy to the card and its "
+          f"ELL build there {copy_ms:.1f} ms, train step {step_ms:.1f} "
+          f"ms, optimizer {opt_ms:.1f} ms")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -941,6 +1095,13 @@ def _phase_train(graph, sampler) -> tuple:
                       "ell_spmm_resident": 0,
                       "lmc_compensate": comp * N_TRAIN_STEPS,
                       "lmc_compensate_resident": 0}, counts
+    # every step's fresh batch: A and Aᵀ built on the card, 4 launches
+    builds = _build_launches()
+    print(f"phase 4 ELL build launches over {N_TRAIN_STEPS} fresh batches: "
+          f"{builds} (4 a batch: rows and scatter for A and for Aᵀ)")
+    assert builds == {"ell_rows": 2 * N_TRAIN_STEPS,
+                      "ell_build": 2 * N_TRAIN_STEPS}, builds
+    counts = {**counts, **builds}
     host = [r["host_s"] / r["time_s"] for r in tr.history[1:]]
     print(f"phase 4 host share of a step (device idle while the host samples "
           f"and builds; a ratio of timings, steps 2-{N_TRAIN_STEPS}): "
@@ -2550,6 +2711,11 @@ KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "lmc_compensate_resident": ("src/repro_torch/csrc/compensate.cu",
                                 "src/repro/kernels/compensate.py:40",
                                 ["lmc_compensate_resident"]),
+    # no TPU kernel: the reference buckets each batch on the host
+    "ell_rows": ("src/repro_torch/csrc/ell_build.cu", None,
+                 ["ell_rows", "ELLPlan.build"]),
+    "ell_build": ("src/repro_torch/csrc/ell_build.cu", None,
+                  ["ell_scatter", "ELLPlan.build"]),
 }
 
 
@@ -2593,6 +2759,7 @@ def main() -> int:
             sampler, ClusterSampler(small, PARTS, CLUSTERS,
                                     parts=small_parts, seed=1))
     slabs.check()
+    numbers.update(_phase_build_kernels(graph, gateway, sampler))
     launches, served = _phase_slice(graph, gateway)
     train_counts, phase4 = _phase_train(graph, sampler)
     for counts in (train_counts, _phase_resident(small, small_parts),

@@ -31,7 +31,7 @@ from repro_torch.core.history import HistoricalState, gather_rows, scatter_rows
 from repro_torch.core.methods import MBMethod
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import PaddedSubgraph
-from repro_torch.kernels import ELLGraph, ell_from_coo, lmc_compensate
+from repro_torch.kernels import ELLGraph, ELLPlan, lmc_compensate, plan_ell
 from repro_torch.models.gnn import GNN, EdgeList, LayerAux
 from repro_torch.optim.optimizers import tree_map
 
@@ -41,11 +41,14 @@ AGG_BACKENDS = ("segment", "ell", "ti")
 class Batch(NamedTuple):
     """A PaddedSubgraph as tensors (CPU from ``host_batch``; ``.to(device)``).
 
-    ``ell`` (optional) carries the batch-local adjacency re-bucketed into the
-    ELL layout of the CUDA SpMM, with fixed per-bucket capacities so every
-    batch of a sampler or serving bucket has one shape; required by
-    ``backend="ell"``. ``ti_scale`` (optional) carries the per-halo-row
-    message-invariance scales α; required by ``compensation="ti"``.
+    ``ell`` (optional) carries the batch-local adjacency in the degree-
+    bucketed ELL layout of the CUDA SpMM, with fixed per-bucket capacities
+    so every batch of a sampler or serving bucket has one shape; required by
+    ``backend="ell"``. ``host_batch`` leaves it an :class:`ELLPlan` (the
+    buckets' row counts, no arrays); ``to`` builds it into an
+    :class:`ELLGraph` on the device the batch goes to, from the COO.
+    ``ti_scale`` (optional) carries the per-halo-row message-invariance
+    scales α; required by ``compensation="ti"``.
     """
     batch_gids: torch.Tensor
     halo_gids: torch.Tensor
@@ -59,40 +62,61 @@ class Batch(NamedTuple):
     beta: torch.Tensor
     loss_scale: torch.Tensor
     grad_scale: torch.Tensor
-    ell: Optional[ELLGraph] = None
+    ell: Optional[ELLGraph | ELLPlan] = None
     ti_scale: Optional[torch.Tensor] = None
 
     def to(self, device, non_blocking: bool = False) -> "Batch":
-        """This batch with every tensor (and the ELL graph) on ``device``;
-        ``non_blocking`` makes the copies asynchronous from pinned memory."""
-        return Batch(*(None if f is None
+        """This batch with every tensor on ``device`` and its ELL plan
+        built there (:meth:`copy_to`, then :meth:`bucketed`)."""
+        return self.copy_to(device, non_blocking).bucketed()
+
+    def copy_to(self, device, non_blocking: bool = False) -> "Batch":
+        """This batch with every tensor (and a built ELL graph) on
+        ``device``; an ELL plan rides along unbuilt. ``non_blocking``
+        makes the copies asynchronous from pinned memory."""
+        return Batch(*(f if f is None or isinstance(f, ELLPlan)
                        else f.to(device, non_blocking=non_blocking)
                        for f in self))
 
+    def bucketed(self) -> "Batch":
+        """This batch with its ELL plan built into the ELLGraph on the
+        device its COO lies on (``ELLPlan.build``: the CUDA kernels on a
+        card, with no host synchronisation; the numpy builder on the CPU);
+        the batch itself where there is no plan."""
+        if not isinstance(self.ell, ELLPlan):
+            return self
+        return self._replace(ell=self.ell.build(self.edge_src, self.edge_dst,
+                                                self.edge_w))
+
     def pin_memory(self) -> "Batch":
         """This (CPU) batch copied into page-locked host memory."""
-        return Batch(*(None if f is None else f.pin_memory() for f in self))
+        return Batch(*(f if f is None or isinstance(f, ELLPlan)
+                       else f.pin_memory() for f in self))
 
     def tensors(self) -> list:
-        """Every tensor of the batch, the ELL graph's included."""
-        return [t for f in self if f is not None
+        """Every tensor of the batch, a built ELL graph's included."""
+        return [t for f in self
+                if f is not None and not isinstance(f, ELLPlan)
                 for t in (f.tensors() if isinstance(f, ELLGraph) else [f])]
 
 
 def host_batch(sg: PaddedSubgraph, *, backend: str = "segment",
                ell_buckets=(8, 32, 128), with_transpose: bool = True) -> Batch:
-    """A Batch of CPU tensors, with the re-bucketed ELL adjacency for
-    ``backend="ell"|"ti"`` and the α scales for ``backend="ti"``.
+    """A Batch of CPU tensors, with the plan of the bucketed ELL adjacency
+    for ``backend="ell"|"ti"`` and the α scales for ``backend="ti"``.
 
-    ``with_transpose`` also buckets Aᵀ, which the training step's backward
+    The plan (``kernels.plan_ell``: each bucket's real rows and fixed
+    capacity, from the COO's row counts) raises ``ELLCapacityError`` here,
+    on the host; ``Batch.to`` builds the buckets on the device.
+    ``with_transpose`` also plans Aᵀ, which the training step's backward
     SpMM runs over; the forward-only serving path passes False.
     """
     assert backend in AGG_BACKENDS, backend
     ell = None
     ti_scale = None
     if backend in ("ell", "ti"):
-        ell = ell_from_coo(sg.edge_src, sg.edge_dst, sg.edge_w, sg.n_ext,
-                           buckets=ell_buckets, with_transpose=with_transpose)
+        ell = plan_ell(sg.edge_src, sg.edge_dst, sg.n_ext,
+                       buckets=ell_buckets, with_transpose=with_transpose)
     if backend == "ti":
         if sg.ti_scale is None:
             raise ValueError(
@@ -116,7 +140,8 @@ def host_batch(sg: PaddedSubgraph, *, backend: str = "segment",
 def to_device_batch(sg: PaddedSubgraph, *, backend: str = "segment",
                     ell_buckets=(8, 32, 128), with_transpose: bool = True,
                     device=None) -> Batch:
-    """Host subgraph -> Batch on ``device`` (None: the card)."""
+    """Host subgraph -> Batch on ``device`` (None: the card), its ELL
+    buckets built there."""
     return host_batch(sg, backend=backend, ell_buckets=ell_buckets,
                       with_transpose=with_transpose).to(
                           resolve_device(device))
@@ -206,6 +231,7 @@ def make_infer_step(gnn: GNN, num_nodes: int, *, backend: str = "segment",
     @torch.no_grad()
     def infer(params: dict, store: HistoricalState, batch: Batch,
               x_full: torch.Tensor, self_w_full: torch.Tensor):
+        batch = batch.bucketed()   # a host batch's plan: built here
         nb = batch.batch_gids.shape[0]
         if backend == "ell" and batch.ell is None:
             raise ValueError(
@@ -274,6 +300,7 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
 
     def step(params: dict, store: Optional[HistoricalState], batch: Batch,
              x_full: torch.Tensor, self_w_full: torch.Tensor):
+        batch = batch.bucketed()   # a host batch's plan: built here
         nb = batch.batch_gids.shape[0]
         if backend in ("ell", "ti") and batch.ell is None:
             raise ValueError(

@@ -8,10 +8,12 @@ Two layers live here (DESIGN.md §9):
 * :class:`SubgraphPipeline` — the LMC training pipeline built on top of it: a
   thread pool pulls schedule slots from ``ClusterSampler.clusters_at`` (a pure
   function of the slot index, so worker arrival order cannot perturb the
-  stream), builds padded ``Batch`` + fixed-capacity ELL buckets on the host
-  and pins them, hands them through the ``Prefetcher`` queue, and
-  double-buffers the host→device transfer: while the consumer runs step k,
-  the copy of the next batch is already issued on a side CUDA stream.
+  stream), builds padded ``Batch`` objects with the plan of their
+  fixed-capacity ELL buckets on the host and pins them, hands them through
+  the ``Prefetcher`` queue, and double-buffers the host→device transfer:
+  while the consumer runs step k, the copy of the next batch, and the build
+  of its ELL buckets from the copied COO, are already issued on a side CUDA
+  stream.
   ``recycle=ρ`` reuses each sampled subgraph for ρ consecutive steps
   (LazyGNN-style minibatch recycling) before resampling; LMC's
   bounded-staleness historical stores keep this within the Thm 2 staleness
@@ -32,6 +34,8 @@ import torch
 from repro_torch import trace
 from repro_torch.core.lmc import Batch, host_batch
 from repro_torch.device import resolve_device
+import repro_torch.kernels.ell_build as ell_build
+from repro_torch.kernels import ELLPlan
 
 
 class _Done:
@@ -195,13 +199,16 @@ class SubgraphPipeline:
     and, for a CUDA device, ``pin_memory``: numpy and host tensors only,
     nothing launched on the card from worker threads), a :class:`Prefetcher`
     buffers up to ``depth`` built batches, and the consumer side keeps one
-    extra batch staged on the device: its ``non_blocking`` copy is issued on
-    a side CUDA stream while the previous step is still running, and records
-    an event that the compute stream waits on before the step reads the
-    batch (double-buffered host→device transfer). The device tensors are
-    ``record_stream``-ed on the compute stream, and the pinned host batch is
-    held until its slot is replaced, so neither memory is reused while the
-    copy or the step may still read it. Each slot carries a record of its
+    extra batch staged on the device: its ``non_blocking`` copy, then the
+    build of its ELL buckets from the copied COO (``Batch.bucketed``), are
+    issued on a side CUDA stream by :meth:`stage_next`, which the trainer
+    calls once it has issued a step (so that they overlap it), or at the
+    latest when the slot is fetched, and record an event that the compute
+    stream waits on before the step reads the batch (double-buffered
+    host→device transfer). The device tensors are ``record_stream``-ed on
+    the compute stream, and the pinned host batch is held until its slot is
+    replaced, so neither memory is reused while the copy or the step may
+    still read it. Each slot carries a record of its
     build's spans, bytes and copy events to its first step (``slot``).
 
     Determinism contract: the stream is a pure function of
@@ -244,8 +251,9 @@ class SubgraphPipeline:
             sampler: a ``ClusterSampler`` (any object with ``clusters_at`` +
                 ``build_batch``); its schedule API must be thread-safe.
             backend: ``"segment"``, ``"ell"`` or ``"ti"`` — whether workers
-                also bucket each batch's adjacency (A and Aᵀ) into the CUDA
-                kernels' ELL layout (``"ti"`` additionally rides the
+                also plan each batch's adjacency (A and Aᵀ) in the CUDA
+                kernels' ELL layout, which ``_stage`` builds on the device
+                (``"ti"`` additionally rides the
                 subgraph's message-invariance scales along; see
                 core/lmc.host_batch).
             depth: prefetch queue depth. ``0`` disables all threading: the
@@ -287,7 +295,9 @@ class SubgraphPipeline:
         self.ell_buckets = ell_buckets
         self.build_hook = build_hook
         self._cuda = self.device.type == "cuda"
-        self._copy_stream = (torch.cuda.Stream(self.device)
+        # high priority: the build's few small kernels on it go ahead of
+        # the blocks of a running step, which it hardly delays
+        self._copy_stream = (torch.cuda.Stream(self.device, priority=-1)
                              if self._cuda and self.depth >= 1 else None)
         # pinned host bytes alive (built, not yet released), and their peak
         self._pinned_lock = threading.Lock()
@@ -318,8 +328,10 @@ class SubgraphPipeline:
         is numpy and ``torch.from_numpy``, pinned when ``pin``; the record
         is ``{"index", "t_ns", "sample_ms", "bucket_ms", "pin_ms" (pinned
         only), "copy_bytes"}``: the build's spans on this thread (the
-        sampler's subgraph, the ELL bucketing in ``host_batch``, pinning),
-        its start and end on the profiler's clock, and the batch's bytes."""
+        sampler's subgraph, the ELL plan in ``host_batch``, pinning), its
+        start and end on the profiler's clock, and the batch's bytes.
+        Nothing here launches on the card; ``_stage`` adds
+        ``ell_launches``."""
         if self.build_hook is not None:
             self.build_hook(slot)
         spans: dict = {}
@@ -373,36 +385,61 @@ class SubgraphPipeline:
     # ------------------------------------------------------------- consumer
     def _stage(self, built: tuple) -> _Staged:
         """Issue a built (host Batch, record)'s copy to the device on the
-        side stream, between the events ``pipeline.copy`` times."""
+        side stream, between the events ``pipeline.copy`` times, then build
+        its ELL buckets there from the copied COO, between the events
+        ``pipeline.ell`` times (where the batch carries an ELL plan). The
+        record gains ``ell_launches``, the build's kernel launches."""
         hb, rec = built
+        launches = ell_build.LAUNCHES
         if self._copy_stream is None:
-            return _Staged(hb.to(self.device), None, hb, rec, {})
-        start = torch.cuda.Event(enable_timing=True)
-        ready = torch.cuda.Event(enable_timing=True)
+            db = hb.to(self.device)
+            rec["ell_launches"] = ell_build.LAUNCHES - launches
+            return _Staged(db, None, hb, rec, {})
+        start, copied, ready = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(3))
         with torch.cuda.stream(self._copy_stream):
             start.record(self._copy_stream)
-            db = hb.to(self.device, non_blocking=True)
-            ready.record(self._copy_stream)
-        return _Staged(db, ready, hb, rec, {"pipeline.copy": (start, ready)})
+            db = hb.copy_to(self.device, non_blocking=True)
+            copied.record(self._copy_stream)
+            events = {"pipeline.copy": (start, copied)}
+            if isinstance(hb.ell, ELLPlan):
+                db = db.bucketed()
+                ready.record(self._copy_stream)
+                events["pipeline.ell"] = (copied, ready)
+            else:
+                ready = copied
+        rec["ell_launches"] = ell_build.LAUNCHES - launches
+        return _Staged(db, ready, hb, rec, events)
 
     def _fetch_next_slot(self) -> _Staged:
         """Staged batch for the next schedule slot, advancing the stream.
 
-        With prefetch: take the staged copy if one exists, else block on
-        the queue and issue the copy; then opportunistically issue the copy
-        of the following slot (this is the device-side double buffer).
-        Without prefetch (``depth=0``): build + copy inline.
+        With prefetch: take the staged copy if one exists (staging it now
+        if its batch is built and no :meth:`stage_next` did), else block on
+        the queue and issue the copy. Without prefetch (``depth=0``): build
+        + copy inline.
         """
         if self._pf is None:
             return self._stage(self._build_host(self._step // self.recycle))
+        self.stage_next()
         if self._staged is not None:
             staged, self._staged = self._staged, None
         else:
             staged = self._stage(next(self._pf))   # may raise StopIteration
+        return staged
+
+    def stage_next(self) -> None:
+        """Issue the following slot's copy, and its ELL build, on the side
+        stream if its batch is built and none is staged yet (the device's
+        double buffer). The trainer calls it once it has issued the step
+        that reads the current batch, so that the host's staging overlaps
+        the device's step; else the next slot's fetch does. A no-op
+        without prefetch."""
+        if self._pf is None or self._staged is not None:
+            return
         nxt = self._pf.poll()
         if nxt is not None:
             self._staged = self._stage(nxt)
-        return staged
 
     def _release(self, staged: Optional[_Staged]) -> None:
         """Drop a replaced slot's pinned host batch from the accounting."""
@@ -440,17 +477,20 @@ class SubgraphPipeline:
     @property
     def host(self) -> Batch:
         """The host Batch of the newest yield's slot: the same gids and
-        masks as the device batch, readable without a device sync."""
+        masks as the device batch, readable without a device sync (its ELL
+        still the plan)."""
         return self._cur.host
 
     @property
     def slot(self) -> Optional[tuple]:
         """``(record, copy)`` of the newest yield's slot when that yield is
         the slot's first step, else None. ``record`` is the build's (see
-        ``_build_host``); ``copy`` holds the side stream's events around the
-        batch's copy, ``{"pipeline.copy": (start, ready)}`` (empty without a
-        side stream), which ``trace.elapsed_ms`` reads once the step that
-        read the batch has synchronised."""
+        ``_build_host``) with ``ell_launches``; ``copy`` holds the side
+        stream's events around the batch's copy and its ELL build,
+        ``{"pipeline.copy": (start, copied), "pipeline.ell": (copied,
+        ready)}`` (the latter only for a batch with an ELL plan; empty
+        without a side stream), which ``trace.elapsed_ms`` reads once the
+        step that read the batch has synchronised."""
         return (self._cur.record, self._cur.copy) if self._fresh else None
 
     @property

@@ -9,6 +9,9 @@
   ops.py         — degree-bucketed production SpMM + compensate wrappers
                    (autograd Functions), bulk-numpy ELL construction,
                    AggregateFn
+  ell_build.py   — the batch's ELL planned on the host (row counts,
+                   capacities) and built on its device: the CUDA scatter
+                   (csrc/ell_build.cu), its wrapper, launch counter and twin
   build.py       — nvcc build of csrc/*.cu for sm_90a, ctypes loading
   ref.py         — plain PyTorch oracles mirroring repro.kernels.ref
 
@@ -24,10 +27,12 @@ from repro_torch.kernels.ell_spmm import (ell_spmm, ell_spmm_resident,
                                           ell_spmm_scatter)
 from repro_torch.kernels.compensate import (lmc_compensate_kernel,
                                             lmc_compensate_resident)
+from repro_torch.kernels.ell_build import ELLPlan, plan_ell
 from repro_torch.kernels.build import build_kernels
 from repro_torch.kernels import ref
 
-__all__ = ["ELLCapacityError", "ELLGraph", "build_ell", "ell_from_coo",
+__all__ = ["ELLCapacityError", "ELLGraph", "ELLPlan", "build_ell",
+           "ell_from_coo", "plan_ell",
            "fixed_row_capacity", "bucketed_spmm", "ell_spmm",
            "ell_spmm_resident", "ell_spmm_scatter",
            "ell_spmm_resident_scatter", "lmc_compensate", "lmc_compensate_kernel",

@@ -4,10 +4,10 @@ Serving requests name arbitrary target sets, unlike training batches which
 come from the cluster sampler's partition. The gateway reuses the exact
 training-batch machinery — ``build_subgraph`` (graph/structure.py) with
 ``num_parts=1, clusters_in_batch=1`` builds the 1-hop padded extension, and
-``host_batch`` (core/lmc.py) re-buckets it into the ELL layout of the CUDA
-SpMM — but with *request-bucket* pad shapes instead of sampler-epoch maxima:
-target counts are rounded up to one of a few capacities so every batch has
-one of ``len(buckets)`` shapes.
+``host_batch`` (core/lmc.py) plans its ELL layout for the CUDA SpMM, which
+``Batch.to`` builds on the device — but with *request-bucket* pad shapes
+instead of sampler-epoch maxima: target counts are rounded up to one of a
+few capacities so every batch has one of ``len(buckets)`` shapes.
 
 Pad sizes per bucket are worst-case by degree order: any ``b`` targets pull
 at most ``sum(top-b degrees)`` halo nodes, and the subgraph's edges (into

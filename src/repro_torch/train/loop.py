@@ -283,8 +283,10 @@ class GNNTrainer:
         On the pipeline path, the
         first step that consumes a slot also carries ``"slot"``: the slot's
         build record (``{"index", "t_ns", "sample_ms", "bucket_ms",
-        "copy_bytes"}``, ``"pin_ms"`` where pinned, ``"copy_ms"`` where a
-        side stream copied it; ``SubgraphPipeline._build_host``). While a
+        "copy_bytes", "ell_launches"}``, ``"pin_ms"`` where pinned,
+        ``"copy_ms"`` where a side stream copied it and ``"ell_ms"`` where
+        it built the ELL buckets there; ``SubgraphPipeline._build_host``
+        and ``_stage``). While a
         torch profiler records on a CUDA device, ``"device_ms"`` holds the
         compute stream's ms of ``"optimizer"`` and ``"commit"`` (the store
         rows; absent where the step kept them out), and the spans
@@ -407,6 +409,8 @@ class GNNTrainer:
               trace.device_span("step.optimizer", dev, self.device)):
             new_params, new_opt, gnorm = self.opt.update(
                 grads, self.opt_state, self.params, self.lr)
+        if self._use_pipeline:   # the next slot's copy, behind this step
+            pipe.stage_next()
         lossf, gnormf = float(loss), float(gnorm)
 
         # ---- health gate: nothing below is applied if this step diverged
@@ -439,8 +443,8 @@ class GNNTrainer:
                "straggler": bool(is_straggler)}
         if fresh is not None:
             rec["slot"] = fresh[0]
-            if "pipeline.copy" in dev_ms:
-                rec["slot"]["copy_ms"] = dev_ms.pop("pipeline.copy")
+            for name in fresh[1]:   # pipeline.copy, pipeline.ell
+                rec["slot"][name.split(".")[1] + "_ms"] = dev_ms.pop(name)
         if dev_ms:
             rec["device_ms"] = {k.split(".")[1]: v for k, v in dev_ms.items()}
         if self.guard is not None:

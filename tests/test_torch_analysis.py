@@ -675,7 +675,9 @@ def test_self_hosted_port_is_clean():
                if f.kind == "global"]
     assert sorted(kernels) == ["compensate_kernel",
                                "compensate_resident_kernel",
-                               "ell_spmm_kernel", "ell_spmm_resident_kernel"]
+                               "ell_build_kernel", "ell_rows_kernel",
+                               "ell_spmm_kernel",
+                               "ell_spmm_resident_kernel"]
 
 
 def test_summary_has_per_rule_lines():

@@ -405,9 +405,134 @@ def test_pipeline_batch_staged_on_side_stream_equals_sync(cuda, backend):
     torch.cuda.synchronize()
     assert all(trace.elapsed_ms(copy)["pipeline.copy"] >= 0
                for _, copy in slots)
+    ell = backend == "ell"
+    assert all(("pipeline.ell" in copy) == ell for _, copy in slots)
+    assert all(rec["ell_launches"] == 4 * ell
+               for rec, _ in slots + sync_slots)
     assert len(sync) == len(staged) == 5
     for a, b in zip(sync, staged):
         assert all(x.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bench_batch(preset: str):
+    """The first slot of the benchmark's epoch schedule on its graph
+    (``perfbench/data/sbm.py`` at seed 0; 32 parts, 4 clusters a batch):
+    the padded subgraph the training cells build first."""
+    from perfbench.data.sbm import make_sbm
+    from repro_torch.graph import ClusterSampler, partition_graph
+    from repro_torch.graph.structure import Graph
+    graph = Graph(**make_sbm(preset, seed=0), name=preset)
+    sampler = ClusterSampler(graph, 32, 4, seed=0,
+                             parts=partition_graph(graph, 32, seed=0))
+    return sampler.build_batch(sampler.clusters_at(0, mode="epoch"))
+
+
+def _assert_ell_equal(got, want) -> None:
+    assert got.bucket_real == want.bucket_real
+    for a, b in zip(got.bucket_idx + got.bucket_w + got.bucket_rows,
+                    want.bucket_idx + want.bucket_w + want.bucket_rows,
+                    strict=True):
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b)
+    assert (got.transpose is None) == (want.transpose is None)
+    if want.transpose is not None:
+        _assert_ell_equal(got.transpose, want.transpose)
+
+
+@pytest.mark.parametrize("preset", ["arxiv-like", "ppi-like"])
+def test_ell_build_kernel_equals_numpy_at_bench_shapes(cuda, preset):
+    """The buckets of A and Aᵀ built on the card from the copied COO equal
+    the numpy builder's bit for bit, ``bucket_real`` included, at the
+    gcn-arxiv and gcnii-ppi cells' first batch; two launches a direction
+    (rows, scatter)."""
+    from repro_torch.core import host_batch
+    build_mod = importlib.import_module("repro_torch.kernels.ell_build")
+    sg = _bench_batch(preset)
+    want = ell_from_coo(sg.edge_src, sg.edge_dst, sg.edge_w, sg.n_ext,
+                        with_transpose=True)
+    before = build_mod.LAUNCHES
+    got = host_batch(sg, backend="ell").to(cuda)
+    torch.cuda.synchronize()
+    assert build_mod.LAUNCHES == before + 4
+    _assert_ell_equal(got.ell, want)
+    fwd = host_batch(sg, backend="ell", with_transpose=False).to(cuda)
+    assert build_mod.LAUNCHES == before + 6
+    _assert_ell_equal(fwd.ell, ell_from_coo(sg.edge_src, sg.edge_dst,
+                                            sg.edge_w, sg.n_ext))
+
+
+def test_ell_rows_kernel_matches_plain(cuda):
+    """Row starts and per-bucket row counts of sorted keys with empty rows,
+    a heavy row (3 × 128 + 5 edges), rows at each width, and keys outside
+    [0, n) at both ends, against the plain twin."""
+    build_mod = importlib.import_module("repro_torch.kernels.ell_build")
+    r = np.random.default_rng(7)
+    n = 500
+    deg = r.choice([0, 0, 1, 7, 8, 9, 31, 32, 33, 128, 129], size=n)
+    deg[3] = 3 * 128 + 5
+    key = np.concatenate([[-2, -1], np.repeat(np.arange(n), deg),
+                          [n, n + 4]]).astype(np.int32)
+    lay = build_mod.Layout.of((8, 32, 128), (1, 1, 1), (0, 0, 0))
+    out = {}
+    for dev in ("cpu", cuda):
+        rowptr = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        counts = torch.empty(3 * n, dtype=torch.int32, device=dev)
+        before = build_mod.LAUNCHES
+        build_mod.ell_rows(torch.from_numpy(key).to(dev), rowptr, counts,
+                           lay)
+        out[str(dev)] = (rowptr.cpu(), counts.cpu(),
+                         build_mod.LAUNCHES - before)
+    (rc, cc, lc), (rg, cg, lg) = out["cpu"], out["cuda"]
+    assert (lc, lg) == (0, 1)
+    assert torch.equal(rg, rc) and torch.equal(cg, cc)
+    assert rc[0] == 2 and rc[-1] == key.shape[0] - 2
+    assert cc.view(3, n)[:, 3].tolist() == [1, 0, 3]
+
+
+def _card_pipe(cuda):
+    from repro_torch.data import SubgraphPipeline
+    from repro_torch.graph import ClusterSampler, make_sbm_dataset
+    graph = make_sbm_dataset("ppi-cpu", seed=3)
+    return SubgraphPipeline(ClusterSampler(graph, 8, 2, seed=0),
+                            backend="ell", depth=2, workers=2, num_steps=4,
+                            device=cuda)
+
+
+def test_staging_a_slot_makes_no_host_sync(cuda):
+    """The batch's copy and its ELL build on the side stream, as staged
+    for a step, wait on the device nowhere (sync debug mode "error"), and
+    give the buckets the numpy builder gives."""
+    with _card_pipe(cuda) as pipe:
+        hb, rec = pipe._build_host(0, pin=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            staged = pipe._stage((hb, rec))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert rec["ell_launches"] == 4
+    assert set(staged.copy) == {"pipeline.copy", "pipeline.ell"}
+    b = hb.to("cpu")   # the same plan, built on the CPU
+    _assert_ell_equal(staged.batch.ell, b.ell)
+
+
+def test_build_host_launches_nothing_on_the_card(cuda):
+    """A builder thread's share of a slot (sampling, the ELL plan,
+    pinning) puts no kernel, copy or fill on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    build_mod = importlib.import_module("repro_torch.kernels.ell_build")
+    with _card_pipe(cuda) as pipe:
+        torch.cuda.synchronize()
+        before = build_mod.LAUNCHES
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            hb, rec = pipe._build_host(1, pin=True)
+            torch.cuda.synchronize()
+    assert build_mod.LAUNCHES == before
+    assert hb.batch_gids.is_pinned() and not hb.edge_src.is_cuda
+    on_card = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert on_card == [], on_card
 
 
 def _card_trainer(cuda):
@@ -442,16 +567,20 @@ def _profiled_run(cuda, steps: int):
 def test_profiled_trainer_fills_device_spans(cuda):
     """Under the profiler every step carries the compute stream's ms of
     the optimizer and the store commit, and every slot its side-stream copy
-    ms; the spans show in the trace."""
+    and ELL build ms and the build's launches; the spans show in the
+    trace."""
     prof, hist = _profiled_run(cuda, 4)
     first, recs = hist[0], hist[1:]
     assert "device_ms" not in first and first["slot"]["copy_ms"] > 0
+    assert first["slot"]["ell_ms"] > 0 and first["slot"]["ell_launches"] == 4
     assert [r["step"] for r in recs] == [2, 3, 4, 5]
     for r in recs:
         assert set(r["device_ms"]) == {"optimizer", "commit"}, r
         assert all(v > 0 for v in r["device_ms"].values()), r
         assert r["slot"]["copy_ms"] > 0 and r["slot"]["pin_ms"] > 0
         assert r["slot"]["copy_bytes"] > 0
+        # A and Aᵀ built on the side stream: rows and scatter each
+        assert r["slot"]["ell_ms"] > 0 and r["slot"]["ell_launches"] == 4
     names = {e.name for e in prof.events()}
     assert {"trainer.wait", "step.lmc", "step.optimizer",
             "step.commit"} <= names

@@ -339,7 +339,8 @@ def test_host_batch_is_the_yielded_slot(tg, parts):
 def test_slot_record_reaches_its_first_step(tg, parts, depth, recycle):
     """Each slot's build record comes with the first yield of its slot and
     with no other: its index, its build's spans in order on the profiler's
-    clock, its bytes; no pinning and no side-stream copy on the CPU."""
+    clock, its bytes, its ELL build's kernel launches; no pinning and no
+    side-stream copy on the CPU."""
     with _pipe(tg, parts, depth=depth, recycle=recycle,
                num_steps=6) as pipe:
         seen = [(batch, pipe.slot) for batch in pipe]
@@ -351,12 +352,31 @@ def test_slot_record_reaches_its_first_step(tg, parts, depth, recycle):
         rec, copy = slot
         assert rec["index"] == step // recycle and copy == {}
         assert set(rec) == {"index", "t_ns", "sample_ms", "bucket_ms",
-                            "copy_bytes"}
+                            "copy_bytes", "ell_launches"}
+        assert rec["ell_launches"] == 0   # built on the CPU: no launch
         assert rec["sample_ms"] > 0 and rec["bucket_ms"] > 0
         assert 0 < rec["t_ns"][0] < rec["t_ns"][1]
         assert (rec["t_ns"][1] - rec["t_ns"][0]) / 1e6 >= \
             rec["sample_ms"] + rec["bucket_ms"]
         assert rec["copy_bytes"] == sum(t.nbytes for t in batch.tensors())
+
+
+def test_stage_next_keeps_the_stream(tg, parts):
+    """Staging the following slot from the consumer, as the trainer does
+    once it has issued a step, yields the batches plain iteration yields;
+    a slot once staged stays staged until it is fetched."""
+    with _pipe(tg, parts, backend="ell", depth=2, num_steps=5) as plain:
+        want = list(plain)
+    got = []
+    with _pipe(tg, parts, backend="ell", depth=2, num_steps=5) as pipe:
+        for b in pipe:
+            got.append(b)
+            pipe.stage_next()
+            staged = pipe._staged
+            pipe.stage_next()
+            assert staged is None or pipe._staged is staged
+    assert len(got) == 5 and all(_same_batch(a, b)
+                                 for a, b in zip(want, got))
 
 
 # ---------------------------------------------------- against the reference
