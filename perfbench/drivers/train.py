@@ -64,7 +64,7 @@ class Program:
             gnn = make_gnn(cfg["arch"], cfg["feature_dim"],
                            cfg["hidden_dim"], cfg["num_classes"],
                            cfg["num_layers"], alpha=cfg.get("alpha", 0.1),
-                           lam=cfg.get("lam", 0.5))
+                           lam=cfg.get("lam", 0.5), **cfg.get("arch_kw", {}))
         gnn.load_state_dict(self.weights, assign=True)
         opt = cfg["optimizer"]
         self.trainer = GNNTrainer(
@@ -184,12 +184,13 @@ def run(ctx: harness.Ctx, plant=None) -> dict:
     setup_s = time.perf_counter() - ctx.t_start
     win, steps = prog.window(ctx.trace)
     window_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peak = max(setup_peak, window_peak) if cuda else 0
     nodes = sum(prog.batch_nodes(r["step"]) for r in steps)
     prog.trainer.close()
     records = None
     if ctx.trace:
         records = {
-            "kind": "train", "config": cfg, "steps": steps,
+            "kind": "train", "config": cfg, "steps": steps, "nodes": nodes,
             "window_s": win.window_s, "busy_s": win.busy_s,
             "device_ops": win.device_ops,
             "step_stats": [prog.step_stats(r["step"]) for r in steps],
@@ -205,6 +206,6 @@ def run(ctx: harness.Ctx, plant=None) -> dict:
     return {"attempted": len(steps), "failed": 0, "correct": correct,
             "checks": chk,
             "e2e": {"train_nodes_per_s": nodes / win.window_s,
-                    "setup_s": setup_s},
-            "memory_peak_bytes": max(setup_peak, window_peak) if cuda else 0,
+                    "train_peak_mem_gib": peak / 2**30, "setup_s": setup_s},
+            "memory_peak_bytes": peak,
             "window": win, "records": records}

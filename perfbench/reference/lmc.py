@@ -1,7 +1,9 @@
 """LMC training (Algorithm 1, Eqs. 8-15) in plain PyTorch, by its equations.
 
 One :class:`RefLMC` holds the parameters, the SGD-momentum state and the
-historical stores H̄ (L, n, d) and V̄ (L-1, n, d). :meth:`RefLMC.step`
+historical stores, a list a layer: H̄[l] (n, widths[l+1]) of layer l's
+output and V̄[l] (n, widths[l+1]) of layer l+1's input, with ``widths``
+from the architecture module. :meth:`RefLMC.step`
 builds the batch's extended subgraph itself (``reference.graph``), runs the
 compensated forward (Eq. 9: a halo row is (1-β)·H̄ + β·fresh), the loss
 (Eq. 14, scaled by B/c over |V_L|), the backward message passing with its
@@ -9,9 +11,13 @@ two cotangents per layer ([V̄;0] for θ, [V̄;V̂] for the adjoints, V̂ by
 Eq. 12), the SGD-momentum update with global-norm clipping, and commits the
 batch rows of every layer's values and adjoints into the stores.
 
-Aggregation is ``torch.sparse.mm`` over the subgraph's CSR (A for the
-forward, Aᵀ for the adjoints); GEMMs are f32 with TF32 off unless
-``tf32=True`` (the control).
+An architecture module (``arch_<arch>.py``) gets the aggregation as an
+:class:`Agg`: called, ``torch.sparse.mm`` over the subgraph's CSR (A for the
+forward, Aᵀ for the adjoints); its attributes carry the edges themselves,
+for messages that are not a fixed weight times the source row. The head is
+the module's ``head``/``head_vjp`` where it defines them, else a linear
+layer. GEMMs are f32 with TF32 off unless ``tf32=True`` (the control);
+``dtype=torch.float64`` runs the whole step in f64 (the CPU tests).
 """
 from __future__ import annotations
 
@@ -63,29 +69,61 @@ def csr_tensor(crow, cols, w, n, device) -> torch.Tensor:
             check_invariants=False)
 
 
+class Agg:
+    """One direction of the extended subgraph's aggregation. ``agg(h)`` is
+    ``torch.sparse.mm`` over the CSR whose rows are the destinations:
+    ``(A h)_i = Σ_{j→i} w_ji h_j``. The edges, in the subgraph's order:
+    ``src``, ``dst`` (local row ids, int64, on the device), ``w`` and the
+    row count ``n``; the reverse direction (Aᵀ) is built with ``src`` and
+    ``dst`` swapped."""
+
+    def __init__(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                 n: int, device):
+        self.A = _csr(dst, src, w, n, device)
+        self.src = torch.from_numpy(src).to(device)
+        self.dst = torch.from_numpy(dst).to(device)
+        self.w = torch.from_numpy(w).to(device)
+        self.n = n
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return torch.sparse.mm(self.A, h)
+
+
+def linear_head(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """The logits ``h W + b`` of an architecture without a head of its own."""
+    return h @ p["head.w"] + p["head.b"]
+
+
+def linear_head_vjp(p: dict, h: torch.Tensor, G: torch.Tensor) -> tuple:
+    """``(grads, dh)`` of :func:`linear_head` for the logits' cotangent."""
+    return {"head.w": h.T @ G, "head.b": G.sum(0)}, G @ p["head.w"].T
+
+
 class RefLMC:
     """Plain LMC trainer over a graph given as arrays (``data.sbm``)."""
 
     def __init__(self, cfg: dict, graph: dict, params: dict, *,
                  num_parts: int, per_batch: int, lr: float,
                  momentum: float = 0.9, clip: float = 1.0, device="cuda",
-                 tf32: bool = False):
+                 tf32: bool = False, dtype: torch.dtype = torch.float32):
         self.cfg, self.g = cfg, graph
         self.arch = arch_module(cfg["arch"])
         self.dev = torch.device(device)
-        self.tf32 = tf32
-        self.p = {k: v.detach().to(self.dev, torch.float32, copy=True)
+        self.tf32, self.dtype = tf32, dtype
+        self.p = {k: v.detach().to(self.dev, dtype, copy=True)
                   for k, v in params.items()}
         self.mom = {k: torch.zeros_like(v) for k, v in self.p.items()}
         self.lr, self.momentum, self.clip = lr, momentum, clip
-        L, d = cfg["num_layers"], cfg["hidden_dim"]
+        L, widths = cfg["num_layers"], self.arch.widths(cfg)
         n = graph["indptr"].shape[0] - 1
-        self.H = torch.zeros((L, n, d), device=self.dev)
-        self.V = torch.zeros((max(L - 1, 1), n, d), device=self.dev)
-        self.x = torch.from_numpy(graph["x"]).to(self.dev)
+        self.H = [torch.zeros((n, widths[l + 1]), device=self.dev, dtype=dtype)
+                  for l in range(L)]
+        self.V = [torch.zeros((n, widths[l + 1]), device=self.dev, dtype=dtype)
+                  for l in range(max(L - 1, 1))]
+        self.x = torch.from_numpy(graph["x"]).to(self.dev, dtype)
         self.y = torch.from_numpy(graph["y"].astype(np.int64)).to(self.dev)
         self.train = torch.from_numpy(
-            graph["train_mask"].astype(np.float32)).to(self.dev)
+            graph["train_mask"].astype(np.float32)).to(self.dev, dtype)
         self.inv_vl = 1.0 / max(int(graph["train_mask"].sum()), 1)
         self.scale = float(num_parts) / float(per_batch)
 
@@ -101,19 +139,16 @@ class RefLMC:
         L = cfg["num_layers"]
         sub = extended(self.g["indptr"], self.g["indices"], batch_nodes)
         nb, R = sub["nb"], sub["ext"].shape[0]
-        A = _csr(sub["dst"], sub["src"], sub["w"], R, dev)
-        At = _csr(sub["src"], sub["dst"], sub["w"], R, dev)
-
-        def agg(h):
-            return torch.sparse.mm(A, h)
-
-        def agg_t(g):
-            return torch.sparse.mm(At, g)
+        w = torch.from_numpy(sub["w"]).to(self.dtype).numpy()
+        agg = Agg(sub["src"], sub["dst"], w, R, dev)
+        agg_t = Agg(sub["dst"], sub["src"], w, R, dev)
+        head = getattr(arch, "head", linear_head)
+        head_vjp = getattr(arch, "head_vjp", linear_head_vjp)
 
         ext = torch.from_numpy(sub["ext"]).to(dev)
         bg, hg = ext[:nb], ext[nb:]
-        s = torch.from_numpy(sub["s"]).to(dev)
-        beta = torch.from_numpy(sub["beta"]).to(dev)[:, None]
+        s = torch.from_numpy(sub["s"]).to(dev, self.dtype)
+        beta = torch.from_numpy(sub["beta"]).to(dev, self.dtype)[:, None]
         x = self.x[ext]
         h0 = arch.embed(p, x)
         h, ctxs, h_rows = h0, [], []
@@ -123,7 +158,7 @@ class RefLMC:
             h_rows.append(out[:nb])
             h = torch.cat([out[:nb],
                            (1 - beta) * self.H[l][hg] + beta * out[nb:]])
-        logits = h @ p["head.w"] + p["head.b"]
+        logits = head(p, h)
         y = self.y[ext]
         tm = self.train[ext]
         logp = torch.log_softmax(logits, -1)
@@ -133,9 +168,9 @@ class RefLMC:
         G[torch.arange(R, device=dev), y] -= 1.0
         G = G * (tm * self.inv_vl)[:, None]
         Gb = torch.cat([G[:nb], torch.zeros_like(G[nb:])])
-        grads = {"head.w": h.T @ Gb, "head.b": Gb.sum(0)}
-        v_bar = (Gb @ p["head.w"].T)[:nb]
-        v_hat = (G[nb:] @ p["head.w"].T)
+        grads, dh = head_vjp(p, h, Gb)
+        v_bar = dh[:nb]
+        v_hat = head_vjp(p, h[nb:], G[nb:])[1]
         v0 = torch.zeros_like(h0)
         v_rows = [None] * (L - 1)
         for l in reversed(range(L)):

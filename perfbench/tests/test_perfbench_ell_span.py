@@ -40,4 +40,7 @@ def test_listed_in_the_benchmark_beside_the_build_spans():
     assert (m["source"], m["unit"], m["moves"]) == (
         "program_span", "ms", "train_nodes_per_s")
     assert m["layer"] == bucket["layer"]
-    assert m["workloads"] == ["gcn-arxiv.train", "gcnii-ppi.train"]
+    assert m["workloads"] == ["gcnii-ppi.train"]
+    twin = listed["pipeline.ell_ms.host_paced"]
+    assert (twin["layer"], twin["moves"], twin["workloads"]) == (
+        m["layer"], "train_peak_mem_gib", ["gcn-arxiv.train"])

@@ -21,6 +21,7 @@ def test_reference_agrees_with_the_lmc_step(workload, cache):
     res = train.run(ctx)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["e2e"]["train_nodes_per_s"] > 0
+    assert res["e2e"]["train_peak_mem_gib"] == 0   # no card, no peak
 
 
 def test_reference_agrees_with_exact_serving(cache):

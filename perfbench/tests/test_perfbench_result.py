@@ -34,15 +34,21 @@ def _res(**kw):
     return {"correct": True, "attempted": 3, "failed": 0,
             "memory_peak_bytes": 7, "window": _Win(),
             "checks": {"loss": {"value": 0.0, "limit": 1e-5}},
-            "e2e": {"train_nodes_per_s": 5.0, "setup_s": 2.0}, **kw}
+            "e2e": {"train_nodes_per_s": 5.0, "train_peak_mem_gib": 4.0,
+                    "setup_s": 2.0}, **kw}
 
 
 def test_result_line_end_to_end():
     sp = harness.spec()
-    line = result_line(sp, "gcn-arxiv.train", False, _res(), 1, "H100")
+    line = result_line(sp, "gcnii-ppi.train", False, _res(), 1, "H100")
     assert list(line) == ["correct", "attempted", "failed", "metrics",
                           "device", "checks"]
     assert set(line["metrics"]) == {"train_nodes_per_s", "setup_s"}
+    # the host-paced cell: its throughput is per-layer (PERF.md §2)
+    arxiv = result_line(sp, "gcn-arxiv.train", False, _res(), 1, "H100")
+    assert arxiv["metrics"] == {
+        "train_peak_mem_gib": {"value": 4.0, "unit": "GiB"},
+        "setup_s": {"value": 2.0, "unit": "s"}}
     assert line["device"] == {"platform": "gpu", "kind": "H100", "count": 1,
                               "memory_peak_bytes": 7}
     json.loads(json.dumps(line))

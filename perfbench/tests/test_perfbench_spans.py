@@ -51,7 +51,10 @@ def test_each_listed_in_the_benchmark():
     for name in WANT:
         m = listed[name]
         assert m["moves"] == "train_nodes_per_s"
-        assert m["workloads"] == ["gcn-arxiv.train", "gcnii-ppi.train"]
+        assert m["workloads"] == ["gcnii-ppi.train"]
+        twin = listed[name + ".host_paced"]
+        assert twin["moves"] == "train_peak_mem_gib"
+        assert twin["workloads"] == ["gcn-arxiv.train"]
         assert m["source"] == ("program_counter" if name.endswith("_mib")
                                else "program_span")
 

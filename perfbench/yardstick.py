@@ -37,3 +37,31 @@ def compensate_work(halo_rows: int, width: int) -> tuple:
     ``(bytes, flops)``."""
     return (3 * halo_rows * width * F32 + halo_rows * (INDEX + 2 * F32),
             5.0 * halo_rows * width)
+
+
+def attention_work(rows: int, edges: int, heads: int, width: int,
+                   out_width: int) -> tuple:
+    """One GAT aggregation ``o_i = Σ_j α_ij z_j`` (``α`` the per-row,
+    per-head softmax of ``LeakyReLU(u_j + v_i)``) over ``rows`` real rows
+    and ``edges`` real edges, each row's self loop an edge more (E' =
+    edges + rows): ``z`` (rows × heads × width), ``u`` and ``v`` (rows ×
+    heads) read once, each edge's source index read once, the output (rows
+    × out_width) written once; per edge and head the score (add, LeakyReLU),
+    the max, the exponential and the sum (5) and a multiply-add per feature.
+    Returns ``(bytes, flops)``."""
+    e = edges + rows
+    return ((rows * heads * (width + 2) + rows * out_width) * F32
+            + e * INDEX, e * heads * (2.0 * width + 5.0))
+
+
+def attention_vjp_work(rows: int, edges: int, heads: int, width: int,
+                       out_width: int) -> tuple:
+    """The VJP of :func:`attention_work`'s aggregation: ``z``, the output's
+    cotangent, ``u``, ``v`` and the source indices read once; ``dz``,
+    ``du`` and ``dv`` written once; per edge and head the softmax recomputed
+    and taken back (8) and two multiply-adds per feature (``dα`` and
+    ``dz``). Returns ``(bytes, flops)``."""
+    e = edges + rows
+    return ((2 * rows * heads * width + rows * out_width
+             + 4 * rows * heads) * F32 + e * INDEX,
+            e * heads * (4.0 * width + 8.0))
