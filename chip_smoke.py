@@ -172,12 +172,29 @@ which raises on failure:
      decode dry-run cells on a fake 2x2x2 CUDA mesh, each stack of
      DTensors recorded (``StackProbe``); each site must be reached, meet
      one placement and run no collective.
+ 12. GAT — GAT-PPI's attention kernels (``csrc/gat_attention.cu``:
+     ``gat_attn_fwd``, ``gat_attn_dst`` over A, ``gat_attn_src`` over Aᵀ)
+     on the ppi-like first batch of the epoch schedule (32 parts, 4
+     clusters; its ELL built on the card, the padded COO's edges into row
+     0 included), at the two layer shapes (4 heads × 256 concatenated, 6 ×
+     121 averaged): the forward and the backward against their plain twins
+     on the same card inputs (1e-5 of the largest value; ``du``, ``dv`` of
+     ``|go|·|z|``), twice bit for bit, each kernel timed beside its own
+     bytes bound and the forward and the backward beside
+     ``perfbench/yardstick.py``'s ``attention_work`` / ``attention_vjp_work``;
+     then 4 GAT-PPI steps (50 → 4×256, 4×256, 6×121, stores 1024, 1024 and
+     121 wide) through GNNTrainer (LMC, ell, sgd lr 0.2): finite losses, 15
+     attention launches a step in the counter and in each step's
+     ``attn_launches``, no SpMM, 5 compensation and 4 ELL build launches a
+     step.
 
 Output: the card's name and power limit first; per-phase lines; then one
 JSON line of per-kernel numbers (the streaming kernels at the training
-shapes, the SpMM ones as a whole layer, launches summed over phases 3-8
-(the CLIs of 6d, 7, 9c, 10d and 11b run in processes of their own and
-are not counted; phases 9, 10 and 11 launch none of these kernels),
+shapes, the SpMM ones as a whole layer, the attention ones summed over
+GAT-PPI's two layer shapes; launches summed over phases 3-8 and phase
+12's training steps (the CLIs of 6d, 7, 9c, 10d and 11b run in processes
+of their own and are not counted; phases 9, 10 and 11 launch none of
+these kernels),
 with the wrappers that launch each kernel); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, if
 CUDA is unavailable or any phase fails.
@@ -207,6 +224,7 @@ RESIDENT_ARGS = {"repro_ell_spmm_resident": (7, 10, 12),
 PARTS, CLUSTERS = 32, 4          # examples/train_gnn.py defaults
 HIDDEN, LAYERS = 256, 3
 N_TRAIN_STEPS = 6
+GAT_HIDDEN, GAT_HEADS, GAT_STEPS = 1024, (4, 6), 4   # GAT-PPI: 4x256, 6x121
 N_REQUESTS = 32
 REQUEST_SIZES = (1, 3, 8, 5, 12, 32, 20, 64, 100, 128, 7, 45)
 TOL_F32 = 1e-5
@@ -940,6 +958,7 @@ def _check_ell_matches_segment(gnn, graph, sampler) -> None:
     pre-activation across the relu and one row's share of a gradient
     element with it."""
     import torch
+    from repro_torch.core.history import stacked
     from repro_torch.core import (LMC, HistoricalState, from_graph,
                                   host_batch, make_train_step)
     from repro_torch.optim import tree_map
@@ -959,8 +978,9 @@ def _check_ell_matches_segment(gnn, graph, sampler) -> None:
         batch = host_batch(sg, backend=backend).to("cuda")
         loss, grads, rows, _ = make_train_step(gnn, LMC, n, backend=backend)(
             params, store, batch, data.x, data.self_w)
-        runs.append((loss, {**_named(grads, "grad"), "h rows": rows.h,
-                            "v rows": rows.v}))
+        runs.append((loss, {**_named(grads, "grad"),
+                            "h rows": stacked(rows.h),
+                            "v rows": stacked(rows.v)}))
     (l_s, seg), (_, seg2), (l_e, ell) = runs
     torch.testing.assert_close(l_e, l_s, rtol=1e-4, atol=0)
 
@@ -1655,6 +1675,7 @@ def _phase_distributed(graph, sampler) -> dict:
     import tempfile
     import torch
     import torch.distributed as dist
+    from repro_torch.core.history import stacked
     from repro_torch.core import (LMC, HistoricalState, commit_rows,
                                   from_graph, host_batch, make_train_step)
     from repro_torch.core.distributed import (commit_owned_rows,
@@ -1718,7 +1739,8 @@ def _phase_distributed(graph, sampler) -> dict:
     nb = sgs[0].n_batch
     for part, r in ((slice(0, nb), per[0][2]), (slice(nb, 2 * nb),
                                                  per[1][2])):
-        for got, want in ((frows.h[:, part], r.h), (frows.v[:, part], r.v)):
+        for got, want in ((stacked(frows.h)[:, part], stacked(r.h)),
+                          (stacked(frows.v)[:, part], stacked(r.v))):
             worst = max(worst, _norm_rel(got, want))
             assert _norm_rel(got, want) <= 2e-4, _norm_rel(got, want)
     print(f"phase 8a stacked batch of 2 x {CLUSTERS} clusters: {rows} rows "
@@ -2698,6 +2720,218 @@ def _phase_lm_sharded() -> None:
           f"kernels in phase 11: {counts}")
 
 
+def _gat_module():
+    return importlib.import_module("repro_torch.kernels.gat_attention")
+
+
+def _gat_ppi():
+    """The ppi-like graph (seed 0) and its sampler as the GAT-PPI cell
+    takes them: 32 parts (partition seed 0), 4 clusters a batch, sampler
+    seed 0."""
+    from repro_torch.graph import (ClusterSampler, make_sbm_dataset,
+                                   partition_graph)
+    graph = make_sbm_dataset("ppi-like", seed=0)
+    return graph, ClusterSampler(graph, PARTS, CLUSTERS, seed=0,
+                                 parts=partition_graph(graph, PARTS, seed=0))
+
+
+def _gat_kernel_bytes(rows: int, edges: int, heads: int,
+                      width: int) -> dict:
+    """Each attention kernel's least (bytes, flops) over ``rows`` rows and
+    ``edges`` edges, self loops included: its inputs read once, its
+    outputs written once, a source index per edge; the forward writes
+    ``o`` (n, H, F) and ``lse``; ``dst`` reads ``z``, ``go``, ``u``, ``v``,
+    ``lse`` and writes ``D`` and ``dv``; ``src`` reads ``D`` besides and
+    writes ``dz`` and ``du``. Per edge and head the forward's softmax (5)
+    and a multiply-add per feature; each backward pass its softmax (8) and
+    two multiply-adds per feature."""
+    nhf, nh = rows * heads * width, rows * heads
+    fwd, bwd = edges * heads * (2.0 * width + 5), \
+        edges * heads * (4.0 * width + 8)
+    return {"gat_attn_fwd": (4 * (2 * nhf + 3 * nh + edges), fwd),
+            "gat_attn_dst": (4 * (2 * nhf + 5 * nh + edges), bwd),
+            "gat_attn_src": (4 * (3 * nhf + 5 * nh + edges), bwd)}
+
+
+def _gat_kernel_case(plan, sg, heads: int, width: int, concat: bool,
+                     reps: int = 10) -> dict:
+    """The three attention kernels at one GAT-PPI layer's shape over the
+    batch's plan: the forward and the backward against their plain twins
+    on the same card inputs (the largest gap over the largest value, 1e-5;
+    ``du`` and ``dv`` over their terms' scale ``|go|·|z|``, as
+    tests/test_torch_gpu_gat.py holds them), twice bit for bit (no
+    atomics), then each kernel timed beside its own bound, and the forward
+    and the backward beside ``yardstick.attention_work`` /
+    ``attention_vjp_work`` over the batch's real rows and edges."""
+    import torch
+    from perfbench.yardstick import (attention_vjp_work, attention_work,
+                                     least_seconds)
+    GAT = _gat_module()
+    n = sg.n_ext
+    gen = torch.Generator(device="cuda").manual_seed(heads * width)
+    z = torch.randn((n, heads, width), generator=gen, device="cuda")
+    u, v = (torch.randn((n, heads), generator=gen, device="cuda")
+            for _ in range(2))
+    go = torch.randn((n, heads, width), generator=gen, device="cuda")
+
+    def kernels():
+        o, lse = GAT.attention_forward(plan.fwd, z, u, v)
+        out = (o, lse, *GAT.attention_backward(plan, z, u, v, lse, go))
+        torch.cuda.synchronize()
+        return out
+
+    before = GAT.LAUNCHES
+    got = kernels()
+    assert GAT.LAUNCHES == before + GAT.LAUNCHES_FORWARD \
+        + GAT.LAUNCHES_BACKWARD, GAT.LAUNCHES - before
+    o, lse = GAT.attention_plain(plan.fwd, z, u, v)
+    want = (o, lse, *GAT.attention_vjp_plain(plan, z, u, v, lse, go))
+    scale = float(go.abs().max() * z.abs().max())
+    gaps = {}
+    for name, a, b in zip(("o", "lse", "dz", "du", "dv"), got, want,
+                          strict=True):
+        assert torch.isfinite(a).all(), name
+        ref = scale if name in ("du", "dv") else float(b.abs().max())
+        gaps[name] = float((a - b).abs().max()) / ref
+        assert gaps[name] <= TOL_F32, (heads, width, name, gaps[name])
+    assert all(torch.equal(a, b) for a, b in zip(got, kernels())), \
+        f"{heads}x{width}: two runs of the attention kernels differ"
+    del o, want
+    lse, d = got[1], GAT.dst_plain(plan.fwd, z, u, v, got[1], go)[0]
+    o_, lse_, d_, dv_ = (torch.empty_like(t) for t in (z, u, u, u))
+    dz_, du_ = torch.empty_like(z), torch.empty_like(u)
+    runs = {
+        "gat_attn_fwd": (
+            lambda: GAT._launch("repro_gat_attn_fwd", GAT._FWD_ARGTYPES,
+                                (z, u, v, o_, lse_), plan.fwd, z),
+            lambda: GAT.attention_plain(plan.fwd, z, u, v)),
+        "gat_attn_dst": (
+            lambda: GAT._launch("repro_gat_attn_dst", GAT._DST_ARGTYPES,
+                                (z, u, v, lse, go, d_, dv_), plan.fwd, z),
+            lambda: GAT.dst_plain(plan.fwd, z, u, v, lse, go)),
+        "gat_attn_src": (
+            lambda: GAT._launch("repro_gat_attn_src", GAT._SRC_ARGTYPES,
+                                (z, u, v, lse, go, d, dz_, du_), plan.bwd,
+                                z),
+            lambda: GAT.src_plain(plan.bwd, z, u, v, lse, go, d))}
+    rows = sg.n_batch_real + sg.n_halo_real
+    edges = int(GAT._edges(plan.fwd)[0].numel())   # real + self loops
+    work = _gat_kernel_bytes(n, edges, heads, width)
+    label = f"{heads}x{width} {'concatenated' if concat else 'averaged'}"
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        out[name] = {"err": max(gaps.values()), "ms": _time_ms(kernel, reps),
+                     "plain_ms": _time_ms(plain, 3),
+                     "bound_ms": _bound_ms(*work[name]), "library_ms": None}
+        print(f"phase 12 {name} {label} (n={n}, E'={edges}): ms="
+              f"{out[name]['ms']:.4f} plain_ms={out[name]['plain_ms']:.4f} "
+              f"(the twin on the card) bound_ms={out[name]['bound_ms']:.5f} "
+              f"({work[name][0] / 1e9:.4f} GB, {work[name][1] / 1e9:.3f} "
+              f"GFLOP; no library call computes it)")
+    wide = heads * width if concat else width
+    fwd_least = 1e3 * least_seconds(*attention_work(
+        rows, sg.n_edges_real, heads, width, wide))
+    bwd_least = 1e3 * least_seconds(*attention_vjp_work(
+        rows, sg.n_edges_real, heads, width, wide))
+    fwd_ms = out["gat_attn_fwd"]["ms"]
+    bwd_ms = out["gat_attn_dst"]["ms"] + out["gat_attn_src"]["ms"]
+    print(f"phase 12 attention {label}: kernels vs twins on the card, "
+          f"largest gaps {gaps} (<= {TOL_F32}), bit-equal run to run; "
+          f"forward {fwd_ms:.4f} ms vs attention_work's {fwd_least:.5f} ms "
+          f"({100 * fwd_least / fwd_ms:.1f}% of the roofline), backward "
+          f"(dst + src) {bwd_ms:.4f} ms vs "
+          f"attention_vjp_work's {bwd_least:.5f} ms "
+          f"({100 * bwd_least / bwd_ms:.1f}%), over {rows} real rows and "
+          f"{sg.n_edges_real} real edges")
+    return out
+
+
+def _gat_train(graph, sampler) -> dict:
+    """GAT-PPI (50 -> 4x256, 4x256, 6x121 averaged) through GNNTrainer (LMC,
+    ell, sgd lr 0.2) for GAT_STEPS steps: finite losses, the step records'
+    ``attn_launches`` and the counter at 15 a step (a forward a layer and
+    two VJP calls a layer, each two launches), no SpMM, 5 compensation and
+    4 ELL build launches a step. Returns the launches."""
+    import torch
+    from repro_torch.core import LMC
+    from repro_torch.models import make_gnn
+    from repro_torch.optim import sgd
+    from repro_torch.train import GNNTrainer
+    GAT = _gat_module()
+    gnn = make_gnn("gat", graph.feature_dim, GAT_HIDDEN, graph.num_classes,
+                   LAYERS, heads=GAT_HEADS[0], out_heads=GAT_HEADS[1],
+                   generator=torch.Generator().manual_seed(0))
+    assert gnn.store_widths() == (GAT_HIDDEN, GAT_HIDDEN, graph.num_classes)
+    t0 = time.time()
+    tr = GNNTrainer(gnn, LMC, graph, sampler, sgd(lr=0.2), backend="ell",
+                    device="cuda")
+    print(f"phase 12 GAT-PPI trainer start (stores {gnn.store_widths()} "
+          f"wide on the card): {time.time() - t0:.1f} s")
+    _zero_counts()
+    GAT.LAUNCHES = 0
+    tr.run(GAT_STEPS)
+    for r in tr.history:
+        print(f"phase 12 GAT-PPI step {r['step']}: loss={r['loss']:.6f} "
+              f"attn_launches={r['attn_launches']} "
+              f"host_ms={1e3 * r['host_s']:.1f} "
+              f"step_ms={1e3 * (r['time_s'] - r['host_s']):.1f}")
+    assert all(math.isfinite(r["loss"]) for r in tr.history), tr.history
+    per_step = LAYERS * (GAT.LAUNCHES_FORWARD + 2 * GAT.LAUNCHES_BACKWARD)
+    assert per_step == 15, per_step
+    assert [r["attn_launches"] for r in tr.history] == \
+        [per_step] * GAT_STEPS, tr.history
+    assert GAT.LAUNCHES == per_step * GAT_STEPS, GAT.LAUNCHES
+    counts, builds = _read_counts(), _build_launches()
+    comp = _per_step_launches()[1]
+    print(f"phase 12 launches over {GAT_STEPS} GAT-PPI steps: attention "
+          f"{GAT.LAUNCHES} ({per_step} a step), {counts}, {builds}")
+    assert counts == {"ell_spmm": 0, "ell_spmm_resident": 0,
+                      "lmc_compensate": comp * GAT_STEPS,
+                      "lmc_compensate_resident": 0}, counts
+    assert builds == {"ell_rows": 2 * GAT_STEPS,
+                      "ell_build": 2 * GAT_STEPS}, builds
+    fwd = LAYERS * GAT.LAUNCHES_FORWARD * GAT_STEPS
+    return {"gat_attn_fwd": fwd, "gat_attn_dst": 2 * fwd,
+            "gat_attn_src": 2 * fwd, **counts, **builds}
+
+
+def _phase_gat() -> tuple:
+    """Phase 12: GAT-PPI's attention kernels at its two layer shapes on the
+    ppi-like cells' first batch (epoch schedule, its ELL built on the
+    card), then GAT-PPI training steps. Returns (the kernels' numbers,
+    summed over the two shapes; the training's launches)."""
+    import torch
+    from repro_torch.core import host_batch
+    from repro_torch.kernels import attention_plan
+    t0 = time.time()
+    graph, sampler = _gat_ppi()
+    sg = sampler.build_batch(sampler.clusters_at(0, mode="epoch"))
+    batch = host_batch(sg, backend="ell").to("cuda")
+    plan = attention_plan(batch.ell)
+    print(f"phase 12 ppi-like first batch: {sg.n_batch_real} batch + "
+          f"{sg.n_halo_real} halo real rows of {sg.n_ext}, "
+          f"{sg.n_edges_real} real edges, ELL buckets "
+          f"{[tuple(i.shape) for i in batch.ell.bucket_idx]} "
+          f"({time.time() - t0:.1f} s)")
+    numbers: dict = {}
+    for heads, width, concat in ((GAT_HEADS[0], GAT_HIDDEN // GAT_HEADS[0],
+                                  True),
+                                 (GAT_HEADS[1], graph.num_classes, False)):
+        for name, c in _gat_kernel_case(plan, sg, heads, width,
+                                        concat).items():
+            acc = numbers.setdefault(name, {"err": 0.0, "ms": 0.0,
+                                            "plain_ms": 0.0, "bound_ms": 0.0,
+                                            "library_ms": None})
+            acc["err"] = max(acc["err"], c["err"])
+            for k in ("ms", "plain_ms", "bound_ms"):
+                acc[k] += c[k]
+        torch.cuda.empty_cache()
+    del batch, plan
+    launches = _gat_train(graph, sampler)
+    print(f"phase 12 time: {time.time() - t0:.1f} s")
+    return numbers, launches
+
+
 KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
     "ell_spmm": ("src/repro_torch/csrc/ell_spmm.cu",
                  "src/repro/kernels/ell_spmm.py:97",
@@ -2716,6 +2950,13 @@ KERNEL_FILES = {   # name -> (source, TPU kernel, wrappers, main path first)
                  ["ell_rows", "ELLPlan.build"]),
     "ell_build": ("src/repro_torch/csrc/ell_build.cu", None,
                   ["ell_scatter", "ELLPlan.build"]),
+    # no TPU kernel: the reference has no GAT
+    "gat_attn_fwd": ("src/repro_torch/csrc/gat_attention.cu", None,
+                     ["attention_forward", "gat_attention"]),
+    "gat_attn_dst": ("src/repro_torch/csrc/gat_attention.cu", None,
+                     ["attention_backward", "gat_attention"]),
+    "gat_attn_src": ("src/repro_torch/csrc/gat_attention.cu", None,
+                     ["attention_backward", "gat_attention"]),
 }
 
 
@@ -2771,6 +3012,9 @@ def main() -> int:
     _phase_lm()
     _phase_lm_train()
     _phase_lm_sharded()
+    gat_numbers, gat_launches = _phase_gat()
+    numbers.update(gat_numbers)
+    _add(launches, gat_launches)
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_FILES[name][0],
          "replaces": KERNEL_FILES[name][1], "launches": launches[name],

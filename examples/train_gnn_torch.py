@@ -43,8 +43,13 @@ def main():
                          "or arxiv-like (169k); see repro_torch.graph."
                          "DATASET_PRESETS")
     ap.add_argument("--arch", default="gcnii", choices=["gcn", "gcnii",
-                                                        "sage", "gin"],
+                                                        "sage", "gin", "gat"],
                     help="GNN architecture")
+    ap.add_argument("--heads", type=int, default=4,
+                    help="GAT: attention heads of each hidden layer, "
+                         "concatenated (--hidden must be a multiple)")
+    ap.add_argument("--out-heads", type=int, default=6,
+                    help="GAT: attention heads of the last layer, averaged")
     ap.add_argument("--method", default=None, choices=list(METHODS),
                     help="mini-batch method: lmc, gas, cluster, ti, or the "
                          "compensation ablations (default: ti when "
@@ -125,7 +130,8 @@ def main():
         args.method = "ti" if args.backend == "ti" else "lmc"
     m = METHODS[args.method]
     gnn = make_gnn(args.arch, g.feature_dim, args.hidden, g.num_classes,
-                   args.layers, generator=torch.Generator().manual_seed(0))
+                   args.layers, heads=args.heads, out_heads=args.out_heads,
+                   generator=torch.Generator().manual_seed(0))
     sampler = ClusterSampler(g, args.parts, args.clusters_per_batch,
                              parts=parts, seed=1,
                              include_halo=m.include_halo,

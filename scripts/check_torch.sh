@@ -40,10 +40,11 @@ python -m pytest -x -q tests/test_torch_*.py "$@"
 python scripts/coverage_gate_torch.py
 
 if [[ "$gpu" == 1 ]]; then
-    python -m pytest -q -m gpu tests/test_torch_gpu.py
+    python -m pytest -q -m gpu tests/test_torch_gpu.py tests/test_torch_gpu_gat.py
     python3 chip_smoke.py
 else
     echo "check_torch: the card gates did not run (pass --gpu on a machine" \
-         "with an NVIDIA GPU: pytest -m gpu tests/test_torch_gpu.py," \
+         "with an NVIDIA GPU: pytest -m gpu tests/test_torch_gpu.py" \
+         "tests/test_torch_gpu_gat.py," \
          "python3 chip_smoke.py)"
 fi

@@ -53,7 +53,8 @@ GROUPS = {
 TESTS = ("tests/test_torch_train.py", "tests/test_torch_kernels.py",
          "tests/test_torch_spmm_scatter.py",
          "tests/test_torch_compensate_layout.py", "tests/test_torch_models.py",
-         "tests/test_torch_serve.py", "tests/test_torch_serve_matrix.py")
+         "tests/test_torch_serve.py", "tests/test_torch_serve_matrix.py",
+         "tests/test_torch_gat.py", "tests/test_torch_history.py")
 
 GROUP_FILES = {
     name: frozenset(str(p) for d in g["dirs"] for p in sorted(d.rglob("*.py")))

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.history import HistoricalState
+from repro_torch.core.history import HistoricalState, stacked
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import GNN
 from repro_torch.models.lm import LM
@@ -69,9 +69,12 @@ def state_from_reference(h, v, device=None) -> HistoricalState:
     ``h`` (L, n, d) and ``v`` (L-1, n, d), as the port's on ``device``
     (None: the card). The arrays are copied, never shared."""
     dev = resolve_device(device)
-    return HistoricalState(
-        h=torch.tensor(np.asarray(h), device=dev),
-        v=None if v is None else torch.tensor(np.asarray(v), device=dev))
+
+    def layers(a):   # layers of different widths raise ValueError
+        return stacked([torch.tensor(np.asarray(x), device=dev) for x in a],
+                       "state_from_reference")
+
+    return HistoricalState(h=layers(h), v=None if v is None else layers(v))
 
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,

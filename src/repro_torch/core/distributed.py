@@ -33,7 +33,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.history import HistoricalState
+from repro_torch.core.history import HistoricalState, one_width, stacked
 from repro_torch.core.lmc import AGG_BACKENDS, Batch, make_train_step
 from repro_torch.core.methods import MBMethod
 from repro_torch.dist.collectives import (all_gather_blocks, all_reduce_sum,
@@ -158,6 +158,8 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
     skip their size exchange, their id check and the batch mask (see
     ``dist.collectives``).
     """
+    what = "make_distributed_train_step"
+    one_width(gnn.store_widths(), what)
     inner = make_train_step(gnn, method, num_nodes, backend=backend,
                             stream=stream)
     L = gnn.num_layers
@@ -182,7 +184,8 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
             0, num_nodes - 1)
         shards = [x, self_w]
         if backend != "ti":
-            shards += [store.h.transpose(0, 1), store.v.transpose(0, 1)]
+            shards += [stacked(store.h, what).transpose(0, 1),
+                       stacked(store.v, what).transpose(0, 1)]
         got = list(fetch_rows(tuple(shards), ext, num_nodes, group,
                               splits=fetch_splits))
         local_store = None
@@ -219,8 +222,9 @@ def make_distributed_train_step(gnn: GNN, method: MBMethod, num_nodes: int,
         owned = None
         if rows is not None:
             cols = slice(c0, c1) if model_group is not None else slice(None)
-            payload = (rows.h[..., cols].transpose(0, 1),) + (
-                (rows.v[..., cols].transpose(0, 1),) if L > 1 else ())
+            payload = (stacked(rows.h, what)[..., cols].transpose(0, 1),) + (
+                (stacked(rows.v, what)[..., cols].transpose(0, 1),)
+                if L > 1 else ())
             gids, got_rows = route_rows(payload, batch.batch_gids,
                                         batch.batch_mask, num_nodes, group,
                                         splits=route_splits)
@@ -239,8 +243,10 @@ def commit_owned_rows(store: HistoricalState, owned: OwnedRows,
     the block's start; on a grid ``group`` is the row group and the rows
     are this rank's feature block). Returns ``store``."""
     start, _ = row_block(num_nodes, dp_axis_size(group), dp_rank(group))
-    idx = owned.gids.to(store.h.device) - start
-    store.h.index_copy_(1, idx, owned.h.to(store.h.dtype))
-    if owned.v is not None:
-        store.v.index_copy_(1, idx, owned.v.to(store.v.dtype))
+    idx = owned.gids.to(store.h[0].device) - start
+    for buf, new in ((store.h, owned.h), (store.v, owned.v)):
+        if new is None:
+            continue
+        for l in range(len(new)):
+            buf[l].index_copy_(0, idx, new[l].to(buf[l].dtype))
     return store

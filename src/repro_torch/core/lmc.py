@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.history import HistoricalState, gather_rows, scatter_rows
+from repro_torch.core.history import (HistoricalState, gather_rows,
+                                      scatter_rows, stacked)
 from repro_torch.core.methods import MBMethod
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import PaddedSubgraph
@@ -247,9 +248,9 @@ def make_infer_step(gnn: GNN, num_nodes: int, *, backend: str = "segment",
         self_w_ext = gather_rows(self_w_full, ext_gids)
         edges = EdgeList(batch.edge_src, batch.edge_dst, batch.edge_w)
         h0_ext = gnn.embed_apply(params["embed"], x_ext)
-        aux = LayerAux(edges=edges, x=x_ext, h0=h0_ext, self_w=self_w_ext,
-                       ell=batch.ell if backend == "ell" else None,
-                       stream=stream)
+        aux = gnn.prepare(LayerAux(
+            edges=edges, x=x_ext, h0=h0_ext, self_w=self_w_ext,
+            ell=batch.ell if backend == "ell" else None, stream=stream))
         bmask = batch.batch_mask[:, None]
         comp_backend = "ti" if compensation == "ti" else backend
 
@@ -267,7 +268,8 @@ def make_infer_step(gnn: GNN, num_nodes: int, *, backend: str = "segment",
             h_in = torch.cat([h_bar_batch, h_hat_halo])
 
         logits = gnn.head_apply(params["head"], h_in[:nb])
-        return logits, (torch.stack(rows) if refresh else None)
+        return logits, (stacked(rows, "make_infer_step")
+                        if refresh else None)
 
     return infer
 
@@ -279,9 +281,10 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
 
     Returns ``(loss, grads, rows, metrics)``. ``grads`` has the layout of
     ``params`` (``GNN.params()``). ``rows`` is a :class:`HistoricalState` of
-    batch rows, ``h`` (L, NB, d) and ``v`` (L-1, NB, d) (None for L = 1),
-    for the caller to write with :func:`commit_rows` once it accepts the
-    step; None when ``method.store_writes`` is False.
+    batch rows, tuples of ``h`` (NB, d_l) per layer and ``v`` (NB, d_l) per
+    layer but the last (None for L = 1), for the caller to write with
+    :func:`commit_rows` once it accepts the step; None when
+    ``method.store_writes`` is False.
 
     ``backend`` selects the aggregation hot path: ``"segment"`` is the plain
     PyTorch gather + ``index_add_``; ``"ell"`` aggregates through the CUDA
@@ -322,9 +325,10 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
                 lambda e: gnn.embed_apply(e, x_ext), params["embed"])
         else:
             h0_ext = gnn.embed_apply(params["embed"], x_ext)
-        aux = LayerAux(edges=edges, x=x_ext, h0=h0_ext, self_w=self_w_ext,
-                       ell=batch.ell if backend in ("ell", "ti") else None,
-                       stream=stream)
+        aux = gnn.prepare(LayerAux(
+            edges=edges, x=x_ext, h0=h0_ext, self_w=self_w_ext,
+            ell=batch.ell if backend in ("ell", "ti") else None,
+            stream=stream))
         bmask = batch.batch_mask[:, None]
         hmask = batch.halo_mask[:, None]
 
@@ -417,9 +421,8 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
             1.0)
         rows = None
         if method.store_writes:
-            rows = HistoricalState(
-                h=torch.stack(h_rows),
-                v=torch.stack(v_rows) if L > 1 else None)
+            rows = HistoricalState(h=tuple(h_rows),
+                                   v=tuple(v_rows) if L > 1 else None)
         return loss, grads, rows, {"loss": loss, "train_acc": acc}
 
     return step
@@ -430,16 +433,17 @@ def commit_rows(store: HistoricalState, batch: Batch, rows,
     """Write a step's refreshed batch rows into the store in place.
 
     ``rows`` is an infer step's (L, NB, d) tensor of ``h`` rows, or a train
-    step's :class:`HistoricalState` of ``h`` and ``v`` rows. ``rows.h[l]``
-    goes to ``store.h[l][batch_gids]`` (and ``rows.v[l]`` to ``store.v[l]``);
-    padded rows are dropped (``scatter_rows``). Returns ``store``.
+    step's :class:`HistoricalState` of ``h`` and ``v`` rows, per layer.
+    ``rows.h[l]`` goes to ``store.h[l][batch_gids]`` (and ``rows.v[l]`` to
+    ``store.v[l]``); padded rows are dropped (``scatter_rows``). Returns
+    ``store``.
     """
     h_rows, v_rows = ((rows.h, rows.v) if isinstance(rows, HistoricalState)
                       else (rows, None))
     for buf, new in ((store.h, h_rows), (store.v, v_rows)):
         if new is None:
             continue
-        for l in range(new.shape[0]):
+        for l in range(len(new)):
             scatter_rows(buf[l], batch.batch_gids, batch.batch_mask, new[l],
                          num_nodes)
     return store

@@ -9,6 +9,10 @@
   ops.py         — degree-bucketed production SpMM + compensate wrappers
                    (autograd Functions), bulk-numpy ELL construction,
                    AggregateFn
+  gat_attention.py — GAT's attention aggregation over the ELL buckets
+                   (csrc/gat_attention.cu): forward and both backward
+                   passes, wrappers, launch counter, plain twins, the
+                   differentiable ``gat_attention``
   ell_build.py   — the batch's ELL planned on the host (row counts,
                    capacities) and built on its device: the CUDA scatter
                    (csrc/ell_build.cu), its wrapper, launch counter and twin
@@ -28,10 +32,12 @@ from repro_torch.kernels.ell_spmm import (ell_spmm, ell_spmm_resident,
 from repro_torch.kernels.compensate import (lmc_compensate_kernel,
                                             lmc_compensate_resident)
 from repro_torch.kernels.ell_build import ELLPlan, plan_ell
+from repro_torch.kernels.gat_attention import AttentionPlan, attention_plan
 from repro_torch.kernels.build import build_kernels
 from repro_torch.kernels import ref
 
-__all__ = ["ELLCapacityError", "ELLGraph", "ELLPlan", "build_ell",
+__all__ = ["AttentionPlan", "ELLCapacityError", "ELLGraph", "ELLPlan",
+           "attention_plan", "build_ell",
            "ell_from_coo", "plan_ell",
            "fixed_row_capacity", "bucketed_spmm", "ell_spmm",
            "ell_spmm_resident", "ell_spmm_scatter",

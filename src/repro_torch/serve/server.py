@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.core.exact import (FullGraphData, exact_layer_values,
                                     from_graph)
-from repro_torch.core.history import HistoricalState
+from repro_torch.core.history import HistoricalState, one_width, stacked
 from repro_torch.core.lmc import commit_rows, make_infer_step
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
@@ -106,7 +106,7 @@ def warm_store(gnn: GNN, params: dict, data: FullGraphData,
     """
     dev = resolve_device(device)
     hs, _ = exact_layer_values(gnn, _params_to(params, dev), data.to(dev))
-    return HistoricalState(h=torch.stack(hs))
+    return HistoricalState(h=stacked(hs, "warm_store"))
 
 
 class GNNServer:
@@ -120,11 +120,15 @@ class GNNServer:
         """Start the server (one worker thread; returns ready to accept).
 
         Runs on ``device`` (None: the CUDA card; raises if there is none).
+        The store is one tensor: a GNN whose layers differ in width (GAT)
+        raises ValueError.
         ``store=None`` warms an exact store from ``params`` (one full-graph
         forward). ``data`` may share a prebuilt FullGraphData; ``data`` and
         ``store`` must already live on ``device``. The server serves from
-        ``store`` and updates it in place.
+        ``store`` and updates it in place (a store given as a sequence of
+        layers is stacked once into a tensor of its own).
         """
+        one_width(gnn.store_widths(), "GNNServer")
         self.device = resolve_device(device)
         self.config = config or ServeConfig()
         self.config.validate()
@@ -135,8 +139,13 @@ class GNNServer:
             else from_graph(graph, device=self.device)
         self._x, self._self_w = self.data.x, self.data.self_w
         n, L = graph.num_nodes, gnn.num_layers
-        self._store = store if store is not None \
-            else warm_store(gnn, self.params, self.data, device=self.device)
+        if store is None:
+            store = warm_store(gnn, self.params, self.data,
+                               device=self.device)
+        # one (L, n, d) tensor from here on: a store given as layers of one
+        # width is stacked once (a copy, which the server then updates)
+        self._store = store if isinstance(store.h, torch.Tensor) \
+            else store._replace(h=stacked(store.h, "GNNServer"))
 
         cfg = self.config
         self.gateway = StoreGateway(graph, buckets=cfg.buckets,
@@ -509,8 +518,9 @@ class GNNServer:
             return
         gids = hg[:min(2, hg.size)]
         with self._mu:
-            self._store.h[:, torch.as_tensor(gids, device=self.device)] = \
-                float("nan")
+            for layer in self._store.h:
+                layer[torch.as_tensor(gids, device=self.device)] = \
+                    float("nan")
         self._event("poisoned", seq, f"rows {gids.tolist()}")
 
     def _nonfinite_store_rows(self, hg: np.ndarray,

@@ -10,8 +10,11 @@ this rank's row block of the new world (``checkpoint.reshard``).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.checkpoint.manager import reshard
-from repro_torch.core.history import HistoricalState, init_history
+from repro_torch.core.history import (HistoricalState, init_history,
+                                      stacked)
 from repro_torch.dist.sharding import (ROW_AXES, distributed, dp_axis_size,
                                        dp_rank, row_block)
 from repro_torch.graph.partition import partition_graph
@@ -27,7 +30,8 @@ def rescale_lmc_state(graph, store: HistoricalState, *,
     The historical values are per-*node*, so they survive a re-partition
     unchanged when `reuse_store` (partition only changes which rows are
     updated together); resetting them is also sound (Thm 2). A reset store
-    is zeros on the old store's own device.
+    is zeros on the old store's own device. Stores whose layers differ in
+    width (GAT's) raise ValueError: resharding them is not supported.
 
     Under a process group (``group``, or the default one) ``store`` is the
     whole store, as a whole-tree checkpoint restores it, and the result is
@@ -40,6 +44,9 @@ def rescale_lmc_state(graph, store: HistoricalState, *,
     reinit zeroes them (every row is byte-fresh — the transient bias of the
     reset is what decays as ρ^k, not row staleness).
     """
+    if not isinstance(store.h, torch.Tensor):
+        store = HistoricalState(stacked(store.h, "rescale_lmc_state"),
+                                stacked(store.v, "rescale_lmc_state"))
     parts = partition_graph(graph, new_num_parts, seed=seed)
     sampler = ClusterSampler(graph, new_num_parts, parts=parts, seed=seed)
     sharded = distributed(group)

@@ -339,20 +339,22 @@ class HealthGuard:
                          (store.v, None if rows is None else rows.v)):
             if buf is None:
                 flags.append(torch.ones((), dtype=torch.bool,
-                                        device=store.h.device))
+                                        device=store.h[0].device))
                 continue
-            row_ok = torch.isfinite(buf).all(dim=-1)          # (L, n)
-            if new is not None:
-                # padded rows go to a spare column n, as True: no boolean
-                # indexing, so no sync before the one below
-                n = buf.shape[1]
-                gids = batch.batch_gids.long()
-                keep = (batch.batch_mask > 0) & (gids >= 0) & (gids < n)
-                row_ok = torch.cat([row_ok, row_ok.new_ones(
-                    (row_ok.shape[0], 1))], dim=1)
-                row_ok[:new.shape[0], torch.where(keep, gids, n)] = (
-                    torch.isfinite(new).all(dim=-1) | ~keep)
-            flags.append(row_ok.all())
+            ok = []
+            for l in range(len(buf)):
+                row_ok = torch.isfinite(buf[l]).all(dim=-1)      # (n,)
+                if new is not None and l < len(new):
+                    # padded rows go to a spare entry n, as True: no
+                    # boolean indexing, so no sync before the one below
+                    n = row_ok.shape[0]
+                    gids = batch.batch_gids.long()
+                    keep = (batch.batch_mask > 0) & (gids >= 0) & (gids < n)
+                    row_ok = torch.cat([row_ok, row_ok.new_ones(1)])
+                    row_ok[torch.where(keep, gids, n)] = (
+                        torch.isfinite(new[l]).all(dim=-1) | ~keep)
+                ok.append(row_ok.all())
+            flags.append(torch.stack(ok).all())
         h_ok, v_ok = torch.stack(flags).tolist()
         if not h_ok:
             self.num_incidents += 1

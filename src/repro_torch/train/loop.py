@@ -55,6 +55,7 @@ from repro_torch.core import (HistoricalState, MBMethod, accuracy,
 from repro_torch.data.prefetch import SubgraphPipeline
 from repro_torch.device import resolve_device
 from repro_torch.graph.sampler import ClusterSampler
+from repro_torch.kernels import gat_attention
 from repro_torch.models.gnn import GNN
 from repro_torch.optim.optimizers import Optimizer, tree_map
 from repro_torch.train.health import (FaultPlan, HealthConfig, HealthGuard,
@@ -168,7 +169,7 @@ class GNNTrainer:
                                gnn.params())
         self.opt_state = optimizer.init(self.params)
         self.store = init_history(gnn.num_layers, graph.num_nodes,
-                                  gnn.hidden_dim, device=self.device)
+                                  gnn.store_widths(), device=self.device)
         self.step_num = 0
         self.lr = float(optimizer.lr)   # mutable: rollback lr-backoff
         self._step = make_train_step(gnn, method, graph.num_nodes,
@@ -271,13 +272,17 @@ class GNNTrainer:
         """Train for ``num_steps`` more steps; returns the history list.
 
         Each step appends ``{"step", "loss", "train_acc", "grad_norm",
-        "time_s", "host_s", "straggler", "t_ns"}`` (with health on, also
+        "time_s", "host_s", "straggler", "attn_launches", "t_ns"}`` (with
+        health on, also
         ``"halo_staleness"`` and, past the ρ budget,
         ``"staleness_violation"``): ``time_s`` is the whole step on the host
         clock but its store commit, ``host_s`` the part spent obtaining
         the batch (sampling and building it, or waiting on the pipeline:
         the span ``trainer.wait``), ``t_ns`` the step's start and end on the
-        profiler's clock (``time.time_ns()``). ``time_s`` and ``host_s``
+        profiler's clock (``time.time_ns()``), ``attn_launches`` the GAT
+        attention kernels the step launched (``kernels.gat_attention``'s
+        counter: 0 for every other arch, and where the step ran the plain
+        twins). ``time_s`` and ``host_s``
         stay on ``perf_counter``, which no clock adjustment can step, since
         their ratio is a metric; ``t_ns`` only places the step on a trace.
         On the pipeline path, the
@@ -291,7 +296,8 @@ class GNNTrainer:
         compute stream's ms of ``"optimizer"`` and ``"commit"`` (the store
         rows; absent where the step kept them out), and the spans
         ``trainer.wait``, ``step.lmc``, ``step.optimizer`` and
-        ``step.commit`` show in the trace. Every ``eval_every`` steps a
+        ``step.commit`` show in the trace, with ``gat.attention`` and
+        ``gat.attention.vjp`` around each attention call. Every ``eval_every`` steps a
         ``{"step", "val_acc"}`` record follows.
 
         The supervisor loop: every fault class recovers here without
@@ -402,9 +408,11 @@ class GNNTrainer:
             if isinstance(self.failure_injector, FaultPlan):
                 batch = self.failure_injector.corrupt_batch(self.step_num,
                                                             batch)
+        launches = gat_attention.LAUNCHES
         with trace.span("step.lmc"):
             loss, grads, rows, metrics = self._step(
                 self.params, self.store, batch, self.data.x, self.data.self_w)
+        launches = gat_attention.LAUNCHES - launches
         with (trace.span("step.optimizer"),
               trace.device_span("step.optimizer", dev, self.device)):
             new_params, new_opt, gnorm = self.opt.update(
@@ -440,7 +448,7 @@ class GNNTrainer:
         dev_ms = trace.elapsed_ms(dev)
         rec = {"step": self.step_num + 1, "loss": lossf, "train_acc": acc,
                "grad_norm": gnormf, "time_s": dt, "host_s": host_s,
-               "straggler": bool(is_straggler)}
+               "straggler": bool(is_straggler), "attn_launches": launches}
         if fresh is not None:
             rec["slot"] = fresh[0]
             for name in fresh[1]:   # pipeline.copy, pipeline.ell

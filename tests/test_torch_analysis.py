@@ -677,7 +677,9 @@ def test_self_hosted_port_is_clean():
                                "compensate_resident_kernel",
                                "ell_build_kernel", "ell_rows_kernel",
                                "ell_spmm_kernel",
-                               "ell_spmm_resident_kernel"]
+                               "ell_spmm_resident_kernel",
+                               "gat_attn_dst_kernel", "gat_attn_fwd_kernel",
+                               "gat_attn_src_kernel"]
 
 
 def test_summary_has_per_rule_lines():
