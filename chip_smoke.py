@@ -54,8 +54,9 @@ which raises on failure:
      on the same 3x256 GCN over the whole arxiv-like graph, 32 parts, 4
      clusters per batch: the first batch's ell step must match a segment step
      on the card within the reference's bar, then 6 steps with finite losses
-     and exactly 27 SpMM launches (9 forward + 2 cotangents x 3 layers x 3
-     buckets over the transpose) and 5 compensation launches (3 forward + 2
+     and exactly 15 SpMM launches (9 forward + 6 over the transpose: the
+     input adjoints of layers 2 and 1, 3 buckets each; layer 0's input, the
+     features, takes none) and 5 compensation launches (3 forward + 2
      backward) and 4 ELL build launches (rows and scatter, for A and for
      Aᵀ) per step; prints host sample+build ms and step ms per step;
   5. resident — the same trainer on arxiv-cpu with stream=False for 6 steps
@@ -78,7 +79,7 @@ which raises on failure:
      (non-finite) and the losses of an uninterrupted run within 1e-4. 6d:
      examples/train_gnn_torch.py for 100 steps, then 150 from its
      checkpoint, which must resume at step 100. Every step that runs, a
-     replay or a rejected one included, must launch 27 SpMM and 5
+     replay or a rejected one included, must launch 15 SpMM and 5
      compensation kernels;
   7. serve faults — the serving fault matrix of tests/test_serve.py on
      phase 3's full-width server, each drill on a server of its own over a
@@ -98,14 +99,14 @@ which raises on failure:
      batches of 4 clusters stacked into one flat batch (383,232 rows), its
      step on the card against the mean of the two per-device steps (loss
      rtol 1e-4, every gradient leaf and the h/v rows in norm rtol 2e-4),
-     27 SpMM + 5 compensation launches per step, host and step ms. 8b: the
+     15 SpMM + 5 compensation launches per step, host and step ms. 8b: the
      row-sharded step over an NCCL process group of one rank (a file://
      init in a temp dir) against the plain step on the same batch: the
      committed h and v bit for bit, loss and gradients at 8a's bar. 8c:
      the step on a row × feature grid, an NCCL ``DeviceMesh`` (1, 1) over
      (data, model) in 8b's group, the stores placed by
      ``lmc_placement(features=True)`` (store rows fetched over the row
-     group, their features gathered over the feature group): 27 SpMM + 5
+     group, their features gathered over the feature group): 15 SpMM + 5
      compensation launches per step, h and v bit for bit against 8b's
      plain step, loss and gradients at 8a's bar, step ms beside 8b's and
      the plain step's (one card cannot host two NCCL ranks: a split
@@ -183,7 +184,7 @@ which raises on failure:
      bytes bound and the forward and the backward beside
      ``perfbench/yardstick.py``'s ``attention_work`` / ``attention_vjp_work``;
      then 4 GAT-PPI steps (50 → 4×256, 4×256, 6×121, stores 1024, 1024 and
-     121 wide) through GNNTrainer (LMC, ell, sgd lr 0.2): finite losses, 15
+     121 wide) through GNNTrainer (LMC, ell, sgd lr 0.2): finite losses, 13
      attention launches a step in the counter and in each step's
      ``attn_launches``, no SpMM, 5 compensation and 4 ELL build launches a
      step.
@@ -920,10 +921,11 @@ def _gcn(graph):
 
 
 def _per_step_launches(buckets: int = 3) -> tuple:
-    """(SpMM, compensation) launches of one LMC step: every layer's buckets
-    in the forward and again over Aᵀ for each of the two cotangents; one
+    """(SpMM, compensation) launches of one LMC step of a GCN or SAGE:
+    every layer's buckets in the forward, and again over Aᵀ for the input
+    adjoint of each layer past the first (the features take none); one
     compensation per layer forward and per adjoint of layers L-1..1."""
-    return LAYERS * buckets * 3, LAYERS + (LAYERS - 1)
+    return buckets * (2 * LAYERS - 1), LAYERS + (LAYERS - 1)
 
 
 def _named(tree, path: str = "") -> dict:
@@ -1109,7 +1111,7 @@ def _phase_train(graph, sampler) -> tuple:
     spmm, comp = _per_step_launches()
     print(f"phase 4 launches over {N_TRAIN_STEPS} steps: {counts} "
           f"(per step: ell_spmm {spmm} = {LAYERS * 3} forward + "
-          f"{2 * LAYERS * 3} over the transpose; lmc_compensate {comp} = "
+          f"{(LAYERS - 1) * 3} over the transpose; lmc_compensate {comp} = "
           f"{LAYERS} forward + {LAYERS - 1} backward)")
     assert counts == {"ell_spmm": spmm * N_TRAIN_STEPS,
                       "ell_spmm_resident": 0,
@@ -1184,7 +1186,7 @@ def _events(tr, kind: str) -> list:
 
 def _assert_launches(label: str, tr, counts: dict,
                      executed: Optional[int] = None) -> int:
-    """27 SpMM and 5 compensation launches per executed step: every step
+    """15 SpMM and 5 compensation launches per executed step: every step
     with a loss record, a replay included, and every step rejected by the
     health gate after it ran (of trainer ``tr``; or ``executed`` steps)."""
     if executed is None:
@@ -2849,8 +2851,9 @@ def _gat_kernel_case(plan, sg, heads: int, width: int, concat: bool,
 def _gat_train(graph, sampler) -> dict:
     """GAT-PPI (50 -> 4x256, 4x256, 6x121 averaged) through GNNTrainer (LMC,
     ell, sgd lr 0.2) for GAT_STEPS steps: finite losses, the step records'
-    ``attn_launches`` and the counter at 15 a step (a forward a layer and
-    two VJP calls a layer, each two launches), no SpMM, 5 compensation and
+    ``attn_launches`` and the counter at 13 a step (a forward a layer and
+    two backward calls a layer but layer 0, whose input takes no adjoint,
+    each two launches), no SpMM, 5 compensation and
     4 ELL build launches a step. Returns the launches."""
     import torch
     from repro_torch.core import LMC
@@ -2876,8 +2879,9 @@ def _gat_train(graph, sampler) -> dict:
               f"host_ms={1e3 * r['host_s']:.1f} "
               f"step_ms={1e3 * (r['time_s'] - r['host_s']):.1f}")
     assert all(math.isfinite(r["loss"]) for r in tr.history), tr.history
-    per_step = LAYERS * (GAT.LAUNCHES_FORWARD + 2 * GAT.LAUNCHES_BACKWARD)
-    assert per_step == 15, per_step
+    per_step = LAYERS * GAT.LAUNCHES_FORWARD \
+        + (2 * LAYERS - 1) * GAT.LAUNCHES_BACKWARD
+    assert per_step == 13, per_step
     assert [r["attn_launches"] for r in tr.history] == \
         [per_step] * GAT_STEPS, tr.history
     assert GAT.LAUNCHES == per_step * GAT_STEPS, GAT.LAUNCHES
@@ -2891,8 +2895,9 @@ def _gat_train(graph, sampler) -> dict:
     assert builds == {"ell_rows": 2 * GAT_STEPS,
                       "ell_build": 2 * GAT_STEPS}, builds
     fwd = LAYERS * GAT.LAUNCHES_FORWARD * GAT_STEPS
-    return {"gat_attn_fwd": fwd, "gat_attn_dst": 2 * fwd,
-            "gat_attn_src": 2 * fwd, **counts, **builds}
+    bwd = (2 * LAYERS - 1) * GAT_STEPS   # a dst and a src launch each
+    return {"gat_attn_fwd": fwd, "gat_attn_dst": bwd,
+            "gat_attn_src": bwd, **counts, **builds}
 
 
 def _phase_gat() -> tuple:

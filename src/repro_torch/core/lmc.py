@@ -2,11 +2,17 @@
 
 ``make_train_step`` is one LMC/GAS/Cluster-GCN training step (the method
 space of core/methods.py). Its backward pass is *explicit* message passing
-(Eqs. 11-13) from one ``torch.func.vjp`` per layer, taken during the forward
-pass and applied to two cotangents:
+(Eqs. 11-13) over one autograd graph per layer, recorded during the forward
+pass (the layer's parameters, input and H^0 as leaves) and walked twice,
+each walk asking only for what its cotangent feeds:
 
-  * ``[V̄_batch ; V̂_halo]`` -> the adjoint recursion (Eqs. 11 & 13)
   * ``[V̄_batch ; 0]``      -> the θ-gradients (Eq. 7 sums in-batch rows only)
+  * ``[V̄_batch ; V̂_halo]`` -> the input adjoints, the recursion (Eqs. 11 & 13)
+
+so autograd prunes the other half of each walk (the input-side products
+of the first, the weight-side products of the second). GAS and Cluster-GCN
+(``bwd_mode="none"``, V̂ = 0) walk once for both; layer 0's input adjoint
+is taken only when the embedding has parameters, its one reader.
 
 ``make_infer_step`` is the forward-only serving entry point over the
 historical store: batch rows aggregate their complete neighbourhood, halo
@@ -162,6 +168,18 @@ def _combine(mode: str, beta: torch.Tensor, hist: torch.Tensor,
     else:
         raise ValueError(mode)
     return out * mask
+
+
+def _grads(out: torch.Tensor, leaves: list, cotangent: torch.Tensor,
+           retain_graph: bool = False) -> list:
+    """The VJP of ``out``'s graph with ``cotangent``, for ``leaves`` alone:
+    autograd walks only the nodes that reach one of them, and a product's
+    backward computes only the operands' halves asked for. A leaf ``out``
+    does not read gets zeros, as ``torch.func.vjp`` gives."""
+    gs = torch.autograd.grad(out, leaves, cotangent,
+                             retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(gs, leaves)]
 
 
 def _effective_beta(mode: str, beta1d: torch.Tensor) -> torch.Tensor:
@@ -332,16 +350,22 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
         bmask = batch.batch_mask[:, None]
         hmask = batch.halo_mask[:, None]
 
-        # ---------------- forward (Eqs. 8-10), one vjp per layer -------------
+        # ---------------- forward (Eqs. 8-10), one autograd graph per layer --
+        # leaves: each layer's parameters and input, and one shared H^0;
+        # nothing outside a layer is recorded. enable_grad: the step records
+        # its graphs under an outer no_grad too.
+        h0_leaf = h0_ext.detach().requires_grad_()
+        aux = aux._replace(h0=h0_leaf)
         h_in = h0_ext
-        vjps, h_rows = [], []
+        graphs, h_rows = [], []
         for l in range(L):
-            def f(lp_, hin_, h0_, _l=l):
-                return gnn.layer_apply(lp_, _l, hin_, aux._replace(h0=h0_))
-
-            h_out, vjp_fn = torch.func.vjp(f, gnn.layer_params(params, l),
-                                           h_in, h0_ext)
-            vjps.append(vjp_fn)
+            lp = {k: v.detach().requires_grad_()
+                  for k, v in gnn.layer_params(params, l).items()}
+            hin_leaf = h_in.detach().requires_grad_()
+            with torch.enable_grad():
+                h_out = gnn.layer_apply(lp, l, hin_leaf, aux)
+            graphs.append((h_out, lp, hin_leaf))
+            h_out = h_out.detach()
             h_bar_batch = h_out[:nb] * bmask
             h_hat_halo = _compensate(method.fwd_mode, backend,
                                      None if backend == "ti" else store.h[l],
@@ -379,17 +403,35 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
             V_hat = V2[nb:] * hmask
 
         # ---------------- backward message passing (Eqs. 11-13, 7/15) --------
+        # Each walk of a layer's graph asks only for what its cotangent
+        # feeds: [V̄; 0] the θ-gradient, [V̄; V̂] the input adjoints. v0_acc
+        # (H^0's adjoint) feeds the embedding's VJP alone, so without one
+        # neither H^0's adjoints nor layer 0's input adjoint are taken.
+        feeds_h0 = vjp_emb is not None
         grads_layers = [None] * L
         v_rows = [None] * (L - 1)
         v0_acc = torch.zeros_like(h0_ext)
         for l in reversed(range(L)):
-            g_lp, hgrad, h0grad = vjps[l](
-                torch.cat([V_bar, torch.zeros_like(V_hat)]))
-            grads_layers[l] = g_lp
-            if method.bwd_mode != "none":
-                _, hgrad, h0grad = vjps[l](torch.cat([V_bar, V_hat]))
-            v0_acc = v0_acc + h0grad
+            h_out, lp, hin_leaf = graphs[l]
+            graphs[l] = None   # the graph is freed by its last walk
+            theta = list(lp.values())
+            takes_input = l >= 1 or (feeds_h0 and layer0_input_is_h0)
+            inputs = ([hin_leaf] if takes_input else []) \
+                + ([h0_leaf] if feeds_h0 else [])
+            ct_theta = torch.cat([V_bar, torch.zeros_like(V_hat)])
+            if method.bwd_mode == "none":   # V̂ = 0: one walk for both
+                g = _grads(h_out, theta + inputs, ct_theta)
+                g_theta, g_in = g[:len(theta)], g[len(theta):]
+            else:
+                g_theta = _grads(h_out, theta, ct_theta,
+                                 retain_graph=bool(inputs))
+                g_in = (_grads(h_out, inputs, torch.cat([V_bar, V_hat]))
+                        if inputs else [])
+            grads_layers[l] = dict(zip(lp, g_theta))
+            if feeds_h0:
+                v0_acc = v0_acc + g_in[-1]
             if l >= 1:
+                hgrad = g_in[0]
                 V_bar_next = hgrad[:nb] * bmask
                 V_hat = _compensate(method.bwd_mode, backend,
                                     None if backend == "ti" else store.v[l - 1],
@@ -397,8 +439,8 @@ def make_train_step(gnn: GNN, method: MBMethod, num_nodes: int, *,
                                     batch.halo_mask, stream, batch.ti_scale)
                 v_rows[l - 1] = V_bar_next
                 V_bar = V_bar_next
-            elif layer0_input_is_h0:
-                v0_acc = v0_acc + hgrad
+            elif takes_input:
+                v0_acc = v0_acc + g_in[0]
 
         # ---------------- parameter gradients (Eq. 7 with A.3.1 scaling) -----
         scale = batch.grad_scale

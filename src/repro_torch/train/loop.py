@@ -39,6 +39,7 @@ the reference draws them from a seed.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import time
 from collections import deque
@@ -62,6 +63,8 @@ from repro_torch.train.health import (FaultPlan, HealthConfig, HealthGuard,
                                       PipelineFault, SimulatedPreemption,
                                       TrainingDivergedError)
 
+# the module, not the function the kernels package re-exports by its name
+_SPMM = importlib.import_module("repro_torch.kernels.ell_spmm")
 # running-median straggler baseline, bounded so the median stays O(1)
 _STEP_TIME_WINDOW = 512
 
@@ -272,7 +275,8 @@ class GNNTrainer:
         """Train for ``num_steps`` more steps; returns the history list.
 
         Each step appends ``{"step", "loss", "train_acc", "grad_norm",
-        "time_s", "host_s", "straggler", "attn_launches", "t_ns"}`` (with
+        "time_s", "host_s", "straggler", "attn_launches", "spmm_launches",
+        "t_ns"}`` (with
         health on, also
         ``"halo_staleness"`` and, past the ρ budget,
         ``"staleness_violation"``): ``time_s`` is the whole step on the host
@@ -282,7 +286,10 @@ class GNNTrainer:
         profiler's clock (``time.time_ns()``), ``attn_launches`` the GAT
         attention kernels the step launched (``kernels.gat_attention``'s
         counter: 0 for every other arch, and where the step ran the plain
-        twins). ``time_s`` and ``host_s``
+        twins), ``spmm_launches`` the ELL SpMM kernels it launched, forward
+        and over Aᵀ (``kernels.ell_spmm``'s two counters, streaming and
+        resident: 0 on the segment backend and the plain twins).
+        ``time_s`` and ``host_s``
         stay on ``perf_counter``, which no clock adjustment can step, since
         their ratio is a metric; ``t_ns`` only places the step on a trace.
         On the pipeline path, the
@@ -409,10 +416,12 @@ class GNNTrainer:
                 batch = self.failure_injector.corrupt_batch(self.step_num,
                                                             batch)
         launches = gat_attention.LAUNCHES
+        spmm = _spmm_launches()
         with trace.span("step.lmc"):
             loss, grads, rows, metrics = self._step(
                 self.params, self.store, batch, self.data.x, self.data.self_w)
         launches = gat_attention.LAUNCHES - launches
+        spmm = _spmm_launches() - spmm
         with (trace.span("step.optimizer"),
               trace.device_span("step.optimizer", dev, self.device)):
             new_params, new_opt, gnorm = self.opt.update(
@@ -448,7 +457,8 @@ class GNNTrainer:
         dev_ms = trace.elapsed_ms(dev)
         rec = {"step": self.step_num + 1, "loss": lossf, "train_acc": acc,
                "grad_norm": gnormf, "time_s": dt, "host_s": host_s,
-               "straggler": bool(is_straggler), "attn_launches": launches}
+               "straggler": bool(is_straggler), "attn_launches": launches,
+               "spmm_launches": spmm}
         if fresh is not None:
             rec["slot"] = fresh[0]
             for name in fresh[1]:   # pipeline.copy, pipeline.ell
@@ -480,6 +490,11 @@ class GNNTrainer:
             return float(accuracy(
                 self.gnn, self.params, self.data,
                 torch.from_numpy(mask.astype(np.float32)).to(self.device)))
+
+
+def _spmm_launches() -> int:
+    """The ELL SpMM kernels launched so far, streaming and resident."""
+    return _SPMM.LAUNCHES + _SPMM.LAUNCHES_RESIDENT
 
 
 def _jsonable(state: dict):

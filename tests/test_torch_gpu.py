@@ -340,7 +340,7 @@ def test_train_step_on_gpu_matches_cpu(cuda, stream):
                     - counts[1])
         out[dev] = (loss, grads, store, launched)
     assert out["cpu"][3] == (0, 0)
-    assert out["cuda"][3] == (27, 5)   # 9 forward + 18 over Aᵀ; 3 + 2
+    assert out["cuda"][3] == (15, 5)   # 9 forward + 6 over Aᵀ; 3 + 2
     (lc, gc, sc, _), (lg, gg, sg_, _) = out["cpu"], out["cuda"]
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=0)
     for key in ("head", "layers"):
